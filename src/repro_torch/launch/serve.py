@@ -1,0 +1,110 @@
+"""Serving launcher: batched-request generation with the rollout engine
+(the inference-cluster side of AsyncFlow, standalone).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_7b \
+      --requests 8 --max-new-tokens 16 --engine continuous
+
+``--engine continuous`` serves through the same
+``engines/continuous_batching`` subsystem the RL rollout stage uses
+(slot scheduler + paged KV cache); ``fixed`` keeps the padded-batch decode
+loop. Both run on ``cuda`` unless ``--device cpu`` is given. As in the
+reference, the model is the arch's reduced variant with the byte
+tokenizer's vocab and random weights from ``--seed``.
+
+``--replicas N`` (the reference's supervised generator fleet) is not
+ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_5_7b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=("fixed", "continuous"),
+                    default="fixed")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots (continuous engine)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help=">1: supervised generator fleet (not ported yet)")
+    ap.add_argument("--crash-p", type=float, default=0.0,
+                    help="deterministic crash probability per request "
+                         "(fleet only)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    if args.replicas > 1:
+        raise NotImplementedError(
+            "--replicas > 1 (the supervised generator fleet) is not yet "
+            "ported (ROADMAP §1)")
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PromptDataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.device import resolve_device
+    from repro_torch.models import init_params
+
+    device = resolve_device(args.device)
+    tok = ByteTokenizer()
+    cfg = dataclasses.replace(get_config(args.arch).reduced(),
+                              vocab_size=tok.vocab_size)
+    params = init_params(args.seed, cfg, device=device)
+    ds = PromptDataset(seed=args.seed)
+    prompts = ds.prompts_for_step(0, args.requests)
+
+    t0 = time.time()
+    n_tokens = 0
+    outputs = []
+    if args.engine == "continuous":
+        from repro_torch.engines.continuous_batching import \
+            ContinuousBatchingEngine
+        max_len = max(len(p["tokens"]) for p in prompts) \
+            + args.max_new_tokens
+        eng = ContinuousBatchingEngine(
+            cfg, num_slots=args.slots, max_len=max_len,
+            max_new_tokens=args.max_new_tokens,
+            temperature=args.temperature, seed=args.seed, device=device)
+        seqs = [eng.make_sequence(p["tokens"], meta={"prompt": p})
+                for p in prompts]
+        done, _ = eng.generate(params, seqs)
+        done.sort(key=lambda q: q.uid)
+        for q in done:
+            ids = q.tokens[q.prompt_len:]
+            outputs.append({"prompt": q.meta["prompt"]["text"],
+                            "response": tok.decode(ids)})
+            n_tokens += len(ids)
+    else:
+        from repro_torch.rl.sampling import generate
+        for i in range(0, len(prompts), args.batch_size):
+            chunk = prompts[i:i + args.batch_size]
+            rows = generate(params, cfg, [p["tokens"] for p in chunk],
+                            args.seed + i,
+                            max_new_tokens=args.max_new_tokens,
+                            temperature=args.temperature, device=device)
+            for p, r in zip(chunk, rows):
+                outputs.append({"prompt": p["text"],
+                                "response": tok.decode(r["response_ids"])})
+                n_tokens += len(r["response_ids"])
+    wall = time.time() - t0
+    print(json.dumps({"arch": args.arch, "engine": args.engine,
+                      "device": str(device),
+                      "requests": len(prompts),
+                      "replicas": args.replicas,
+                      "wall_s": round(wall, 2),
+                      "tokens_per_s": round(n_tokens / wall, 1),
+                      "samples": outputs[:4]}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,137 @@
+"""Common neural-net building blocks (plain functions on tensors; params
+are nested dicts of tensors with the reference's keys and shapes).
+
+Conventions, as in the reference:
+  * ``init_<layer>(gen, ...) -> params`` and ``<layer>(params, x, ...) -> y``;
+    every random draw takes an explicit ``torch.Generator`` on the target
+    device.
+  * Params are stored in ``param_dtype`` (fp32 by default); compute runs in
+    ``compute_dtype`` (bf16) — matmuls cast both operands, norms and RoPE
+    run in fp32 and cast back. Dense weights are ``(d_in, d_out)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# -- initializers -----------------------------------------------------------
+
+def normal_init(gen, shape, scale=0.02, dtype=torch.float32):
+    """N(0, scale²) drawn in fp32 on ``gen``'s device, cast to ``dtype``."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return x.normal_(0.0, scale, generator=gen).to(dtype)
+
+
+def zeros_init(shape, dtype=torch.float32, device=None):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+# -- dense ------------------------------------------------------------------
+
+def init_dense(gen, d_in, d_out, *, bias=False, scale=0.02,
+               dtype=torch.float32, layers=()):
+    """``layers`` prepends stacked layer axes (the reference vmaps init)."""
+    p = {"w": normal_init(gen, (*layers, d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = zeros_init((*layers, d_out), dtype, gen.device)
+    return p
+
+
+def dense(p, x, compute_dtype=torch.bfloat16):
+    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+# -- norms --------------------------------------------------------------------
+
+def init_norm(kind, d, dtype=torch.float32, device=None, layers=()):
+    p = {"scale": torch.ones((*layers, d), dtype=dtype, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros((*layers, d), dtype=dtype, device=device)
+    return p
+
+
+def norm(p, x, eps=1e-6):
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# -- activations --------------------------------------------------------------
+
+def act_fn(name):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+# -- MLP (SwiGLU for silu, plain 2-layer for gelu) ----------------------------
+
+def init_mlp(gen, d_model, d_ff, activation, dtype=torch.float32, layers=()):
+    p = {"up": init_dense(gen, d_model, d_ff, dtype=dtype, layers=layers),
+         "down": init_dense(gen, d_ff, d_model, dtype=dtype, layers=layers)}
+    if activation == "silu":
+        p["gate"] = init_dense(gen, d_model, d_ff, dtype=dtype, layers=layers)
+    return p
+
+
+def mlp(p, x, activation, compute_dtype=torch.bfloat16):
+    f = act_fn(activation)
+    h = dense(p["up"], x, compute_dtype)
+    if "gate" in p:
+        h = h * f(dense(p["gate"], x, compute_dtype))
+    else:
+        h = f(h)
+    return dense(p["down"], h, compute_dtype)
+
+
+# -- rotary -------------------------------------------------------------------
+
+def rotary_freqs(head_dim, theta):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rotary(x, positions, theta=10_000.0):
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Split-half
+    rotation in fp32, frequencies computed in numpy fp32."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rotary_freqs(hd, theta)).to(x.device)
+    angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- embeddings ---------------------------------------------------------------
+
+def init_embedding(gen, vocab, d, dtype=torch.float32):
+    return {"table": normal_init(gen, (vocab, d), 0.02, dtype)}
+
+
+def embed(p, tokens, compute_dtype=torch.bfloat16):
+    # gather, then cast: the same values as casting the whole table first
+    return p["table"][tokens].to(compute_dtype)
+
+
+def unembed(p, x, compute_dtype=torch.bfloat16):
+    return torch.matmul(x.to(compute_dtype),
+                        p["table"].to(compute_dtype).T)

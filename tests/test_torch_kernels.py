@@ -1,0 +1,123 @@
+"""The port's attention kernels against the reference's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; that version is
+held against the JAX kernel in interpret mode on the same inputs (made
+with numpy), at the shapes of ``tests/test_kernels.py`` plus a ragged
+S=100. ``tests/test_torch_cuda.py`` holds the CUDA kernels against the
+plain versions on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.decode_attention import \
+    decode_attention_kernel
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention_kernel
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _pair(x, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _close(out_t, out_j, tol):
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _valid(rng, B, S, empty_row=False):
+    fill = rng.integers(1, S + 1, size=B)
+    if empty_row:
+        fill[0] = 0                    # no valid key: uniform average
+    return np.arange(S)[None, :] < fill[:, None]
+
+
+FLASH_SHAPES = [
+    (1, 128, 4, 4, 64),       # MHA
+    (2, 256, 4, 2, 64),       # GQA 2:1
+    (1, 256, 8, 1, 32),       # MQA
+    (2, 128, 4, 4, 128),      # 128-wide heads
+    (2, 100, 4, 2, 64),       # ragged S
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_plain_matches_jax_kernel(B, S, H, KV, hd, dtype, window):
+    rng = np.random.default_rng(S * 31 + H)
+    x = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in x)
+    ref = flash_attention_kernel(qj, kj, vj, window=window,
+                                 block_q=min(128, S), block_k=min(128, S),
+                                 interpret=True)
+    out = flash_attention(qt, kt, vt, window=window)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+DECODE_SHAPES = [
+    (2, 1024, 4, 2, 64),
+    (1, 2048, 8, 8, 32),
+    (3, 512, 4, 1, 128),
+    (3, 100, 4, 2, 64),       # ragged S, one row with no valid key
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_plain_matches_jax_kernel(B, S, H, KV, hd, dtype):
+    rng = np.random.default_rng(S * 17 + H)
+    x = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in x)
+    valid = _valid(rng, B, S, empty_row=S == 100)
+    ref = decode_attention_kernel(qj, kj, vj, jnp.asarray(valid),
+                                  block_k=min(512, S), interpret=True)
+    out = decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 4, 32), np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 16, 2, 32), np.float32))
+    valid = torch.ones((1, 16), dtype=torch.bool)
+    n_f, n_d = flash_attention.launches, decode_attention.launches
+    assert torch.equal(flash_attention(q, kv, kv, window=4),
+                       flash_attention_ref(q, kv, kv, window=4))
+    assert torch.equal(decode_attention(q[:, :1], kv, kv, valid),
+                       decode_attention_ref(q[:, :1], kv, kv, valid))
+    assert (flash_attention.launches, decode_attention.launches) == \
+        (n_f, n_d)
+
+
+@pytest.mark.parametrize("B,S,H,KVH", [(4, 2080, 28, 4), (4, 4099, 28, 4),
+                                       (1, 1, 4, 4), (3, 100, 4, 1),
+                                       (64, 8, 28, 4), (1, 524288, 32, 8),
+                                       (2, 777, 64, 2)])
+def test_decode_splits_cover_s_with_no_empty_split(monkeypatch, B, S, H,
+                                                   KVH):
+    """The S splits the wrapper hands the CUDA entry: every split holds at
+    least one key, together they cover S, and they fill about two blocks
+    per SM where S allows (the entry refuses anything else)."""
+    from repro_torch.kernels.decode_attention import ops
+    monkeypatch.setattr(ops, "_num_sms", lambda index: 132)
+    nsplit, chunk = ops._splits(torch.device("cpu"), B, S, H, KVH)
+    assert nsplit >= 1 and chunk >= 1
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    blocks = B * KVH * -(-(H // KVH) // ops.GMAX)
+    assert nsplit == 1 or blocks * (nsplit - 1) < 2 * 132
