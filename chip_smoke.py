@@ -9,7 +9,7 @@ which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built
    from ``src/repro_torch/csrc`` (build seconds printed);
-2. each CUDA kernel against its plain PyTorch version at the serving
+2. each attention kernel against its plain PyTorch version at the serving
    path's shapes, in bf16 and fp32, with its time beside the plain
    version's, ``F.scaled_dot_product_attention``'s (timed as a yardstick
    only; the port never calls it) and the card's bound;
@@ -22,8 +22,24 @@ which raises on failure:
    sequences reproduces the logprobs their decode steps (decode kernel)
    recorded, in bf16 and in an fp32 run;
 6. a ``torch.profiler`` trace of a short serving run: device time by
-   kernel and the device's idle share;
-7. a JSON line per kernel and, last, the device line.
+   kernel and the device's idle share; then the serving weights are freed;
+7. the training path's kernels (``grpo_logprob``, ``fused_rl_loss``
+   forward and backward) against their plain versions at vocab 152,064
+   (4096 rows, and the trainer's micro-batch of 4 x 79 rows) and at the
+   byte vocab 259 (rows off the 16-byte grid), bf16 and fp32, timed beside
+   the plain versions, a one-call ``torch.log_softmax``/``torch.softmax``
+   yardstick and the card's bound;
+8. one GRPO micro-batch of full-width Qwen2.5-7B cut to 2 layers, through
+   the kernels and through the plain loss, in bf16 and fp32 compute: loss,
+   stats and every parameter's gradient agree, and the attention weights
+   get a gradient;
+9. ``Trainer.fit`` at that width, async, KL on, continuous rollout: 3
+   steps of 16 samples, the launch counts of all five kernels over the
+   run, wall, samples/s, weight-sync quantiles, peak memory, stage busy
+   shares;
+10. a ``torch.profiler`` trace of one actor update (forward, loss,
+    backward, AdamW): device time by kernel and the device's idle share;
+11. a JSON line per kernel and, last, the device line.
 """
 from __future__ import annotations
 
@@ -40,6 +56,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# fused_rl_loss backward: relative to each element of dx, plus 1e-5 of its
+# terms where they cancel (fused_rl_loss_bwd_tolerance)
+DX_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # Teacher-forced logprob agreement. fp32: the decode and prefill paths
 # differ only in summation order, so they agree within 1e-3 nats. bf16: the
 # paths round at different places (8-bit mantissa, residual stream in bf16
@@ -50,6 +69,8 @@ FP32_TF_TOL = 1e-3
 BF16_TF_FACTOR = 2.0
 L2_BYTES = 50 * 2 ** 20
 SEQ_LEN_MAX = 2048         # longest byte prompt
+TRAIN_LAYERS = 2           # depth of the training phases (width is full)
+TRAIN_ROWS = 4 * 79        # a trainer micro-batch: 4 rows of seq_len 80
 MAX_NEW = 32
 NUM_SLOTS = 4
 TEMPERATURE = 0.8
@@ -286,6 +307,300 @@ def profile_serving(torch, params, cfg, prompts, max_len):
             "self_cpu_us": e.self_cpu_time_total}))
 
 
+def _loss_inputs(torch, gen, N, V, dt):
+    """Logits and the (N,) vectors of one loss call; old and ref logprobs
+    sit near the logits' own logprobs, as on the training path, so the
+    ratios and the KL are of order one."""
+    from repro_torch.kernels.grpo_logprob import grpo_logprob_ref
+    dev = torch.device("cuda")
+    x = (4 * torch.randn((N, V), generator=gen, device=dev)).to(dt)
+    t = torch.randint(0, V, (N,), generator=gen, device=dev)
+    lp = grpo_logprob_ref(x, t)[0]
+    old = lp + 0.3 * torch.randn(N, generator=gen, device=dev)
+    ref = lp + 0.1 * torch.randn(N, generator=gen, device=dev)
+    adv = torch.randn(N, generator=gen, device=dev)
+    dlp = torch.randn(N, generator=gen, device=dev)
+    g_ent = torch.randn(N, generator=gen, device=dev)
+    return x, t, old, ref, adv, dlp, g_ent
+
+
+def _check_dx(dtype, shape, x, t, stats, dx):
+    """dx of the backward kernel against its plain version, each element
+    within its own limit; returns (max abs err, max err/limit)."""
+    from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd_ref,
+                                                   fused_rl_loss_bwd_tolerance)
+    want = fused_rl_loss_bwd_ref(x, t, *stats)
+    limit = fused_rl_loss_bwd_tolerance(x, t, *stats, want, DX_RTOL[dtype])
+    err = (dx.float() - want.float()).abs()
+    worst = (err / limit).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"fused_rl_loss_bwd {dtype} {shape}: dx "
+                             f"disagrees with its plain version ({worst} "
+                             f"times the limit)")
+    return err.max().item(), worst
+
+
+def phase_loss_kernels(torch, timed):
+    """The three vocab-streaming kernels against their plain versions;
+    returns {name: row} at the ``timed`` (dtype, N, V)."""
+    from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
+                                                   fused_rl_loss_bwd_ref,
+                                                   fused_rl_loss_fwd,
+                                                   fused_rl_loss_fwd_ref)
+    from repro_torch.kernels.grpo_logprob import (grpo_logprob,
+                                                  grpo_logprob_ref)
+    V = 152_064
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows, out = [], {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for N, VV in ((4096, V), (TRAIN_ROWS, V), (7, 259)):
+            x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
+                                                           dt)
+            e = x.element_size()
+            lp, ent = grpo_logprob(x, t)
+            err_lp = max(_check("grpo_logprob", "float32", (N, VV), o, r)
+                         for o, r in zip((lp, ent), grpo_logprob_ref(x, t)))
+            fo = fused_rl_loss_fwd(x, t, old, ref, adv)
+            err_f = max(_check("fused_rl_loss_fwd", "float32", (N, VV), o, r)
+                        for o, r in zip(fo, fused_rl_loss_fwd_ref(
+                            x, t, old, ref, adv)))
+            lse, xbar = fo[5], fo[5] - fo[1]
+            err_b, dx_share = _check_dx(
+                dtype, (N, VV), x, t, (lse, xbar, dlp, g_ent),
+                fused_rl_loss_bwd(x, t, lse, xbar, dlp, g_ent))
+            sets = _copies(torch, (x, t, old, ref, adv, lse, xbar, dlp,
+                                   g_ent))
+            nv = N * VV
+            cases = {
+                "grpo_logprob": (
+                    err_lp, lambda x, t, *r: grpo_logprob(x, t),
+                    lambda x, t, *r: grpo_logprob_ref(x, t),
+                    lambda x, *r: torch.log_softmax(x, dim=-1),
+                    nv * e + 8 * N + 8 * N, 4 * nv),
+                "fused_rl_loss_fwd": (
+                    err_f, lambda x, t, o, r, a, *_: fused_rl_loss_fwd(
+                        x, t, o, r, a),
+                    lambda x, t, o, r, a, *_: fused_rl_loss_fwd_ref(
+                        x, t, o, r, a),
+                    lambda x, *r: torch.log_softmax(x, dim=-1),
+                    nv * e + 8 * N + 12 * N + 24 * N, 4 * nv),
+                "fused_rl_loss_bwd": (
+                    err_b, lambda x, t, o, r, a, l, xb, d, g:
+                    fused_rl_loss_bwd(x, t, l, xb, d, g),
+                    lambda x, t, o, r, a, l, xb, d, g:
+                    fused_rl_loss_bwd_ref(x, t, l, xb, d, g),
+                    lambda x, *r: torch.softmax(x, dim=-1),
+                    2 * nv * e + 8 * N + 16 * N, 6 * nv)}
+            for name, (err, fn, plain, lib, nbytes, ops) in cases.items():
+                # fp32 arithmetic on the CUDA cores whatever the input type
+                bound, by = _bound(nbytes, ops, "float32")
+                row = dict(kernel=name, dtype=dtype, N=N, V=VV,
+                           max_abs_err=err,
+                           **({"max_err_over_limit": dx_share}
+                              if name == "fused_rl_loss_bwd" else {}),
+                           ms=_time_ms(torch, fn, sets, 20),
+                           plain_ms=_time_ms(torch, plain, sets, 5),
+                           library_ms=_time_ms(torch, lib, sets, 20),
+                           bound_ms=bound, bound_by=by)
+                rows.append(row)
+                if (dtype, N, VV) == timed:
+                    out[name] = row
+            del x, t, old, ref, adv, dlp, g_ent, sets, fo, lp, ent
+            torch.cuda.empty_cache()
+    for row in rows:
+        print("kernel_vs_plain", json.dumps(row))
+    return out
+
+
+def _train_rows(cfg, n, seed, seq_len=80, prompt_len=16):
+    """``n`` synthetic experience rows of ``seq_len`` tokens, as the
+    TransferQueue hands them to the train stage."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mask = np.r_[np.zeros(prompt_len), np.ones(seq_len - prompt_len)]
+    return {
+        "response": [rng.integers(3, cfg.vocab_size, seq_len)
+                     for _ in range(n)],
+        "logprob": [(-12.0 + 0.3 * rng.standard_normal(seq_len))
+                    .astype(np.float32) for _ in range(n)],
+        "ref_logprob": [(-12.0 + 0.3 * rng.standard_normal(seq_len))
+                        .astype(np.float32) for _ in range(n)],
+        "response_mask": [mask.astype(np.float32)] * n,
+        "advantage": [float(a) for a in rng.standard_normal(n)],
+    }
+
+
+def _plain_fused_rl_loss(logits, targets, old, ref, adv, *, clip_eps=0.2):
+    """``fused_rl_loss`` through the unfused plain oracle (autograd)."""
+    from repro_torch.kernels.fused_rl_loss import fused_rl_loss_oracle
+    shape, V = targets.shape, logits.shape[-1]
+    outs = fused_rl_loss_oracle(
+        logits.reshape(-1, V), targets.reshape(-1), old.reshape(-1),
+        ref.reshape(-1), adv.reshape(-1), clip_eps=clip_eps)
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def phase_microbatch(torch, cfg2):
+    """One GRPO micro-batch (4 x 80 tokens) at full width, 2 layers: the
+    kernels' loss against the plain loss on the same params and batch."""
+    import dataclasses
+
+    from repro_torch.engines import pack_rows
+    from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
+                                                   fused_rl_loss_fwd)
+    from repro_torch.models import init_params
+    from repro_torch.rl import loss as loss_mod
+    from repro_torch.rl.grpo import GRPOConfig, grpo_grad_step
+    from repro_torch.tree import tree_leaves
+    params = init_params(SEED, cfg2)
+    batch = pack_rows(_train_rows(cfg2, 4, SEED), 80)
+    rl = GRPOConfig(kl_coef=0.05)
+    tol = {"bfloat16": 2e-2, "float32": 1e-4}
+    report = {"phase": "microbatch", "layers": cfg2.num_layers}
+    for compute, gtol in tol.items():
+        c = dataclasses.replace(cfg2, compute_dtype=compute)
+        n = fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        g_k, m_k = grpo_grad_step(params, c, rl, batch)
+        torch.cuda.synchronize()
+        t_k = time.monotonic() - t0
+        if (fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches) != \
+                (n[0] + 1, n[1] + 1):
+            raise AssertionError("the micro-batch missed the loss kernels")
+        inner = loss_mod.fused_rl_loss
+        loss_mod.fused_rl_loss = _plain_fused_rl_loss
+        try:
+            t0 = time.monotonic()
+            g_p, m_p = grpo_grad_step(params, c, rl, batch)
+            torch.cuda.synchronize()
+            t_p = time.monotonic() - t0
+        finally:
+            loss_mod.fused_rl_loss = inner
+        stats = {k: (float(m_k[k]), float(m_p[k])) for k in m_k}
+        for k, (a, b) in stats.items():
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * (1 + abs(b))):
+                raise AssertionError(f"micro-batch {compute} {k}: kernel "
+                                     f"{a} vs plain {b}")
+        rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+        if not rel <= gtol:
+            raise AssertionError(f"micro-batch {compute}: gradients differ "
+                                 f"by {rel} relative (limit {gtol})")
+        attn = {w: float(g_k["blocks"]["attn"][w]["w"].abs().max())
+                for w in ("wq", "wk", "wv")}
+        if min(attn.values()) <= 0.0:
+            raise AssertionError(f"attention weights got no gradient: {attn}")
+        report[compute] = {"stats_kernel_plain": stats,
+                           "max_grad_rel_frobenius": rel, "limit": gtol,
+                           "attn_grad_max": attn, "grad_step_s": t_k,
+                           "plain_grad_step_s": t_p}
+        del g_k, g_p
+    print(json.dumps(report))
+    del params
+    torch.cuda.empty_cache()
+
+
+def _counters():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
+                                                   fused_rl_loss_fwd)
+    from repro_torch.kernels.grpo_logprob import grpo_logprob
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "grpo_logprob": grpo_logprob,
+            "fused_rl_loss_fwd": fused_rl_loss_fwd,
+            "fused_rl_loss_bwd": fused_rl_loss_bwd}
+
+
+def phase_trainer(torch, cfg2, smi):
+    """``Trainer.fit`` on the card; returns (trainer, launches).
+
+    lr 1e-6, a GRPO post-training rate for 7B models: at the CPU-scale
+    default 3e-4, AdamW's first, sign-like steps on the KL term's
+    near-zero gradients move every logit by about a nat per step, and the
+    KL of random weights runs away within three steps."""
+    from repro_torch.api import Trainer, TrainerConfig
+    tcfg = TrainerConfig(
+        mode="async", num_steps=3, prompts_per_step=4, group_size=4,
+        rollout_workers=2, rollout_batch=2, train_micro_batch=4,
+        max_new_tokens=64, seq_len=80, kl_coef=0.05, lr=1e-6,
+        rollout_backend="continuous", staleness=1, seed=SEED)
+    trainer = Trainer(tcfg, model_cfg=cfg2)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    res = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    n = tcfg.num_steps * tcfg.prompts_per_step * tcfg.group_size
+    steps = [m for m in res.metrics if "grad_norm" in m]
+    if res.samples_trained != n or len(steps) != tcfg.num_steps:
+        raise AssertionError(f"trainer: {res.samples_trained} samples, "
+                             f"{len(steps)} steps")
+    for m in steps:
+        for k in ("loss", "grad_norm", "policy_loss", "entropy",
+                  "ratio_mean"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"trainer: {k} not finite: {m}")
+    if max(res.staleness_seen) > tcfg.staleness + 1:
+        raise AssertionError(f"staleness {max(res.staleness_seen)}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never ran in training: {launches}")
+    tel = res.telemetry
+    sync = [v for v in tel["metrics"].get("weight_sync_seconds",
+                                          {}).get("values", [])]
+    print(json.dumps({
+        "phase": "trainer", "card": smi, "layers": cfg2.num_layers,
+        "steps": len(steps), "samples": res.samples_trained,
+        "wall_s": wall, "samples_per_s": res.samples_trained / wall,
+        "max_staleness": max(res.staleness_seen), "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "weight_sync_seconds": sync, "stages": tel["stages"],
+        "instances": tel["instances"], "metrics": steps}))
+    return trainer, launches
+
+
+def profile_actor_update(torch, trainer):
+    """Trace one actor update (a micro-batch of 4 x 80 tokens through
+    forward, loss and backward, then AdamW) on the trainer's engine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = trainer.train_engine
+    eng.global_batch = 4
+    rows = _train_rows(trainer.cfg, 4, SEED + 1)
+    eng.update_actor(rows)                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = eng.update_actor(rows)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    if not out or not math.isfinite(out["loss"]):
+        raise AssertionError(f"actor update: {out}")
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(json.dumps({"phase": "profile_actor_update", "wall_us": wall_us,
+                      "kernel_names": len(events),
+                      "device_busy_us": busy_us,
+                      "device_idle_share": 1 - busy_us / wall_us}))
+    for e in events[:15]:
+        print("profile_kernel", json.dumps({
+            "name": e.key[:90], "calls": e.count,
+            "device_us": e.self_device_time_total,
+            "share": e.self_device_time_total / busy_us}))
+
+
 def main():
     torch = _import_port()
     import dataclasses
@@ -427,17 +742,43 @@ def main():
 
     # -- 6. where the device time goes ---------------------------------------
     profile_serving(torch, params, cfg, prompts, max_len)
+    del params, eng, eng32, done, done32, seqs, by_uid, pair
+    torch.cuda.empty_cache()
 
-    # -- 7. output -----------------------------------------------------------
-    sources = {"decode_attention": (
-        "src/repro/kernels/decode_attention/decode_attention.py:72"),
-        "flash_attention": (
-        "src/repro/kernels/flash_attention/flash_attention.py:94")}
+    # -- 7. the training path's kernels vs plain versions ---------------------
+    krows.update(phase_loss_kernels(torch, ("bfloat16", TRAIN_ROWS,
+                                            cfg.vocab_size)))
+
+    # -- 8. one GRPO micro-batch at full width --------------------------------
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    phase_microbatch(torch, cfg2)
+
+    # -- 9. the trainer -----------------------------------------------------
+    trainer, train_launches = phase_trainer(torch, cfg2, smi)
+    for name in ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd"):
+        launches[name] = train_launches[name]
+
+    # -- 10. where an actor update's device time goes ------------------------
+    profile_actor_update(torch, trainer)
+
+    # -- 11. output -----------------------------------------------------------
+    sources = {
+        "decode_attention":
+            "src/repro/kernels/decode_attention/decode_attention.py:72",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:94",
+        "grpo_logprob": "src/repro/kernels/grpo_logprob/grpo_logprob.py:84",
+        "fused_rl_loss_fwd":
+            "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:145",
+        "fused_rl_loss_bwd":
+            "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:178"}
+    files = {"fused_rl_loss_fwd": "fused_rl_loss",
+             "fused_rl_loss_bwd": "fused_rl_loss"}
     kernels = []
     for name, row in krows.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{files.get(name, name)}.cu",
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

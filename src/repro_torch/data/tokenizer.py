@@ -25,8 +25,11 @@ class ByteTokenizer:
         return np.asarray(ids, np.int32)
 
     def decode(self, ids) -> str:
+        """Bytes of the byte ids; specials, and ids past the byte range
+        that a model with a wider vocab (Qwen2.5's 152,064) samples, decode
+        to nothing. The reference raises on the latter."""
         bs = bytes(int(i) - N_SPECIALS for i in ids
-                   if int(i) >= N_SPECIALS)
+                   if N_SPECIALS <= int(i) < self.vocab_size)
         return bs.decode("utf-8", errors="replace")
 
     def pad_batch(self, seqs: List[np.ndarray], length: int | None = None,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library ``build/kernels/<name>-<hash>.so`` (hash of the source, so
 an edited source rebuilds), with a plain C interface loaded through
-``ctypes``. Every source starts compiling at once, at first use; nothing
-is built when a module is imported. A build that fails raises.
+``ctypes``; a source may export several entries. Every source starts
+compiling at once, at first use; nothing is built when a module is
+imported. A build that fails raises.
 """
 from __future__ import annotations
 
@@ -25,19 +26,35 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: every entry returns cudaGetLastError() after its launch.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures by source, then entry: every entry returns
+# cudaGetLastError() after its launch. dtype: 0 = float32, 1 = bfloat16.
 SIGNATURES = {
-    # q, k, v, valid, part_m, part_l, part_acc, out, B, S, H, KVH, hd,
-    # nsplit, chunk, dtype(0=f32,1=bf16), stream
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
-    # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, dtype, stream
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention": {
+        # q, k, v, valid, part_m, part_l, part_acc, out, B, S, H, KVH, hd,
+        # nsplit, chunk, dtype, stream
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P]},
+    "flash_attention": {
+        # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, dtype, stream
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P]},
+    "grpo_logprob": {
+        # logits, targets, lp, ent, N, V, dtype, stream
+        "grpo_logprob": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "fused_rl_loss": {
+        # logits, targets, old, ref, adv, lp, ent, kl, pl, ratio, lse, N, V,
+        # clip_eps, dtype, stream
+        "fused_rl_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _F, _I, _P],
+        # logits, targets, lse, xbar, dlp, g_ent, dx, N, V, dtype, stream
+        "fused_rl_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, object] = {}
+_count_lock = threading.Lock()
 build_seconds = 0.0           # wall time of the builds in this process
 
 
@@ -87,20 +104,48 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 raise RuntimeError(
                     f"nvcc failed for {failed}; see "
                     + ", ".join(str(BUILD_DIR / f"{n}.log") for n in failed))
-        for name, argtypes in SIGNATURES.items():
+        for name, entries in SIGNATURES.items():
             if name not in _libs:
                 lib = ctypes.CDLL(str(_lib_path(name)))
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for entry, argtypes in entries.items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    _entries[entry] = fn
                 _libs[name] = lib
         return dict(_libs)
 
 
-def kernel(name: str):
-    """The C entry ``name`` (builds every library on first use)."""
-    lib = _libs.get(name) or build_all()[name]
-    return getattr(lib, name)
+def kernel(entry: str):
+    """The C entry ``entry`` (builds every library on first use)."""
+    fn = _entries.get(entry)
+    if fn is None:
+        build_all()
+        fn = _entries[entry]
+    return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; rollout and trainer threads launch
+    kernels concurrently, so the read-modify-write takes a lock."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU: the wrappers then run their
+    plain versions. Anything else takes the kernel or raises."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a kernel that has no backward: a
+    gradient must never go missing silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and autograd is "
+            "recording inputs that require grad; call it under "
+            "torch.no_grad(), or differentiate the plain route")
 
 
 def check(name: str, err: int) -> None:
@@ -111,6 +156,13 @@ def check(name: str, err: int) -> None:
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+
+
+def aligned(t):
+    """``t`` as a contiguous tensor on a 16-byte aligned base (a copy only
+    where ``t`` is not one already)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda_inputs(name: str, *tensors) -> None:

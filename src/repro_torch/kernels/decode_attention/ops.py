@@ -33,8 +33,9 @@ def decode_attention(q, k_cache, v_cache, valid):
     Returns (B,1,H,hd) in the dtype of q. Masks ragged S in place; there
     is no fallback for shapes that do not tile."""
     args = (q, k_cache, v_cache, valid)
-    if all(t.device.type == "cpu" for t in args):
+    if _build.on_cpu(*args):
         return decode_attention_ref(*args)
+    _build.require_no_grad("decode_attention", *args)
     _build.check_cuda_inputs("decode_attention", *args)
     B, one, H, hd = q.shape
     _, S, KVH, _ = k_cache.shape
@@ -63,7 +64,7 @@ def decode_attention(q, k_cache, v_cache, valid):
         _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return out
 
 

@@ -1,5 +1,11 @@
 """Wrapper: the CUDA kernel (``csrc/flash_attention.cu``) for CUDA
-tensors, the plain version for CPU tensors, nothing else."""
+tensors, the plain version for CPU tensors, nothing else.
+
+The kernel is forward only, as the reference's Pallas kernel is, and the
+ctypes launch records no autograd graph: on CUDA tensors that require grad
+under grad mode the wrapper raises instead of returning an output that
+would silently drop the gradient of q, k and v. The training forward takes
+the plain attention route (``forward(..., use_flash=False)``)."""
 import torch
 
 from repro_torch.kernels import _build
@@ -10,8 +16,9 @@ def flash_attention(q, k, v, *, window=0):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KVH,hd), Sq <= Sk — causal, optional
     sliding window. Returns (B,Sq,H,hd) in the dtype of q. Masks ragged
     tails in place; there is no fallback for shapes that do not tile."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, window=window)
+    _build.require_no_grad("flash_attention", q, k, v)
     _build.check_cuda_inputs("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     _, Sk, KVH, _ = k.shape
@@ -31,7 +38,7 @@ def flash_attention(q, k, v, *, window=0):
         H, KVH, hd, int(window), _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err)
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

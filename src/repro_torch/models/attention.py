@@ -5,12 +5,15 @@ Three entry points, as in the reference:
   * ``attend_decode`` — one new token against a filled KV cache.
   * ``init_kv_cache`` — stacked-over-layers cache tensors.
 
-Causal self-attention goes through ``kernels/flash_attention`` and decode
-attention through ``kernels/decode_attention``: on CUDA tensors those
-launch the hand-written kernels, on CPU tensors they run the kernels'
-plain versions. There is no switch. ``sdpa`` (softmax weights cast to the
-compute dtype before ``p@v``, as the reference's plain path does) serves
-only cross-attention and non-causal attention.
+Causal self-attention goes through ``kernels/flash_attention`` unless the
+caller passes ``use_flash=False``, and decode attention through
+``kernels/decode_attention``: on CUDA tensors those launch the hand-written
+kernels, on CPU tensors they run the kernels' plain versions. The flash
+kernel has no backward (nor has the reference's Pallas kernel), so the
+training forward takes ``use_flash=False``: ``sdpa`` with a causal mask
+(softmax weights cast to the compute dtype before ``p@v``), the
+reference's plain path (``rl/grpo.py:54`` calls ``forward`` without
+``use_pallas``). ``sdpa`` also serves cross- and non-causal attention.
 """
 from __future__ import annotations
 
@@ -55,8 +58,18 @@ def sdpa(q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
+def causal_mask(sq, sk, window=0, device=None):
+    """(1,1,sq,sk) causal mask; ``window``>0 adds a sliding-window band."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m = m & (kpos > qpos - window)
+    return m[None, None]
+
+
 def attend_full_kv(p, x, cfg, positions=None, *, window=0, cross_kv=None,
-                   causal=True):
+                   causal=True, use_flash=True):
     """``attend_full`` that also returns the rotated K and projected V it
     used, so the prefill cache reuses them instead of projecting again."""
     B, S, _ = x.shape
@@ -73,27 +86,32 @@ def attend_full_kv(p, x, cfg, positions=None, *, window=0, cross_kv=None,
     else:
         k, v = cross_kv
 
-    if cross_kv is None and causal:
+    if use_flash and cross_kv is None and causal:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               window=window)
     else:
         kk = _repeat_kv(k, nh // k.shape[2])
         vv = _repeat_kv(v, nh // v.shape[2])
-        mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
-                          device=x.device)
+        if cross_kv is not None or not causal:
+            mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
+                              device=x.device)
+        else:
+            mask = causal_mask(S, S, window=window, device=x.device)
         out = sdpa(q, kk, vv, mask)
     return dense(p["wo"], out.reshape(B, S, nh * hd), cd), k, v
 
 
 def attend_full(p, x, cfg, positions=None, *, window=0, cross_kv=None,
-                causal=True):
+                causal=True, use_flash=True):
     """Full-sequence attention (train / prefill / encoder / cross).
 
     cross_kv: optional (k_src, v_src) already-projected encoder memory for
-    cross-attention (no mask).
+    cross-attention (no mask). use_flash=False takes the plain,
+    differentiable route for causal self-attention.
     """
     return attend_full_kv(p, x, cfg, positions, window=window,
-                          cross_kv=cross_kv, causal=causal)[0]
+                          cross_kv=cross_kv, causal=causal,
+                          use_flash=use_flash)[0]
 
 
 def project_cross_kv(p, memory, cfg):

@@ -1,4 +1,5 @@
-"""Carry parameters across between the reference and the port.
+"""Carry parameters (and training state) across between the reference and
+the port.
 
 A reference param tree (nested dicts/lists of arrays, e.g. after
 ``jax.tree.map(np.asarray, params)``) maps to the port's tree of tensors
@@ -49,3 +50,31 @@ def params_to_reference(params):
     """The port's tree of tensors → a tree of numpy arrays the reference
     takes as params."""
     return _map(params, _to_array)
+
+
+def state_from_reference(state, *, device=None):
+    """A reference ``TrainState`` (params, opt_state {m, v, count}, step)
+    -> the port's ``TrainState`` with the same numbers, through numpy."""
+    from repro_torch.training.train_state import TrainState
+    dev = resolve_device(device)
+    opt = state.opt_state
+    return TrainState(
+        params=params_from_reference(_map(state.params, np.asarray),
+                                     device=dev),
+        opt_state={"m": params_from_reference(_map(opt["m"], np.asarray),
+                                              device=dev),
+                   "v": params_from_reference(_map(opt["v"], np.asarray),
+                                              device=dev),
+                   "count": int(np.asarray(opt["count"]))},
+        step=int(np.asarray(state.step)))
+
+
+def state_to_reference(state):
+    """The port's ``TrainState`` -> (params, opt_state, step) as numpy
+    trees and scalars; the reference's ``TrainState(*...)`` takes them."""
+    opt = state.opt_state
+    return (params_to_reference(state.params),
+            {"m": params_to_reference(opt["m"]),
+             "v": params_to_reference(opt["v"]),
+             "count": np.asarray(opt["count"], np.int32)},
+            np.asarray(state.step, np.int32))

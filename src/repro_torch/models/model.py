@@ -27,11 +27,17 @@ def init_params(seed: int, cfg, *, device=None):
     return transformer.init_lm(gen, cfg)
 
 
-def forward(params, cfg, batch, *, window=0, return_cache=False):
-    """Full-sequence forward. Returns (logits, aux[, cache])."""
+def forward(params, cfg, batch, *, window=0, use_flash=True,
+            return_cache=False):
+    """Full-sequence forward. Returns (logits, aux[, cache]).
+
+    ``use_flash`` chooses the causal attention route, as the reference's
+    ``use_pallas`` does: True (serving, prefill, reference inference) takes
+    ``kernels/flash_attention``, forward only; False (the actor update)
+    takes the plain, differentiable ``sdpa``."""
     logits, aux, cache = transformer.forward_lm(
         params, cfg, batch["tokens"], window=window,
-        return_cache=return_cache)
+        return_cache=return_cache, use_flash=use_flash)
     if return_cache:
         return logits, aux, cache
     return logits, aux

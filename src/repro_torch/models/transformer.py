@@ -65,19 +65,20 @@ def init_lm(gen, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_full(p, x, cfg, *, window, positions):
+def _attn_block_full(p, x, cfg, *, window, positions, use_flash):
     h = norm(p["ln1"], x)
     y, k, v = attn.attend_full_kv(p["attn"], h, cfg, positions,
-                                  window=window)
+                                  window=window, use_flash=use_flash)
     x = x + y
     h = norm(p["ln2"], x)
     return x + mlp(p["ffn"], h, cfg.activation, x.dtype), k, v
 
 
 def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
-               positions=None):
+               positions=None, use_flash=True):
     """tokens: (B, S) int. Returns (logits (B, S, V), aux, cache_or_None);
-    the cache is {"kv": {"k", "v"}} of (L, B, S, KVH, hd)."""
+    the cache is {"kv": {"k", "v"}} of (L, B, S, KVH, hd). use_flash=False
+    takes the plain, differentiable attention route (training)."""
     _require_dense(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
@@ -88,7 +89,8 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
     ks, vs = [], []
     for i in range(cfg.num_layers):
         x, k, v = _attn_block_full(_layer(params["blocks"], i), x, cfg,
-                                   window=window, positions=positions)
+                                   window=window, positions=positions,
+                                   use_flash=use_flash)
         if return_cache:
             ks.append(k)
             vs.append(v)
