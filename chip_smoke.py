@@ -39,10 +39,34 @@ which raises on failure:
    shares;
 10. a ``torch.profiler`` trace of one actor update (forward, loss,
     backward, AdamW): device time by kernel and the device's idle share;
-11. a JSON line per kernel and, last, the device line.
+11. ``mamba_scan`` against its plain version in fp32 at the long prefill
+    (B=1, S=2048, D=8192, N=16), the trainer's reference-inference rows
+    (4 x 80) and two ragged shapes, timed beside the plain version and the
+    card's bound (no single PyTorch call computes a selective scan);
+12. full-width Falcon-Mamba-7B (all 64 layers, vocab 65,024, random
+    weights from a seed) served through the fixed engine: 4 requests,
+    16 new tokens each;
+13. teacher-forced consistency for the ssm family: a full forward
+    (``mamba_scan``) over the finished sequences reproduces the logprobs
+    the decode recurrence recorded, in bf16 and in an fp32 run;
+14. a ``torch.profiler`` trace of a short ssm serving run; then the
+    weights are freed;
+15. one GRPO micro-batch of Falcon-Mamba-7B cut to 4 layers, through the
+    loss kernels and through the plain loss, bf16 and fp32: loss, stats
+    and gradients agree, and every mamba parameter gets a gradient;
+16. ``Trainer.fit`` on that model, async, KL on, fixed rollout backend (the
+    only one the ssm family has): the launch counts of ``mamba_scan``,
+    ``grpo_logprob`` and both ``fused_rl_loss`` kernels over the run; then
+    a trace of one of its actor updates;
+17. a JSON line per kernel and, last, the device line.
+
+Phases 3, 4, 9, 12 and 16 set the launch counts of the kernels they
+check to 0 just before they start and read them just after (phase 12
+reads after the teacher-forced forwards of phase 13).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -70,7 +94,15 @@ BF16_TF_FACTOR = 2.0
 L2_BYTES = 50 * 2 ** 20
 SEQ_LEN_MAX = 2048         # longest byte prompt
 TRAIN_LAYERS = 2           # depth of the training phases (width is full)
+SSM_TRAIN_LAYERS = 4       # the same for Falcon-Mamba-7B (28 GB at 64)
 TRAIN_ROWS = 4 * 79        # a trainer micro-batch: 4 rows of seq_len 80
+SSM_PROMPT_MAX = 64        # Falcon-Mamba serving: prompt tokens at most
+SSM_NEW = 16               # and new tokens per request
+SSM_VOCAB = 65_024         # Falcon-Mamba-7B's vocab
+SSM_REF_ROWS = (4, 80, 8192, 16)   # mamba_scan in the trainer's reference
+                                   # inference: 4 rows x 80 x d_inner, N
+SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
+SMS = 132
 MAX_NEW = 32
 NUM_SLOTS = 4
 TEMPERATURE = 0.8
@@ -236,16 +268,20 @@ def make_prompts(seed):
     return prompts
 
 
-def _forward_logprobs(torch, params, cfg, q):
-    """Logprobs of ``q``'s response tokens under one full forward."""
+def _forward_logprobs(torch, params, cfg, seqs):
+    """For each (tokens, recorded logprobs, prompt length) in ``seqs``: the
+    logprobs of its response tokens under one full forward."""
     from repro_torch.models import forward
     dev = params["embed"]["table"].device
-    toks = torch.tensor(q.tokens, device=dev)[None]
-    with torch.no_grad():
-        logits, _ = forward(params, cfg, {"tokens": toks})
-    logp = torch.log_softmax(logits[0].float() / TEMPERATURE, dim=-1)
-    t = torch.arange(q.prompt_len, len(q.tokens), device=dev)
-    return logp[t - 1, toks[0, t]]
+    out = []
+    for tokens, _, plen in seqs:
+        toks = torch.tensor(tokens, device=dev)[None]
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, {"tokens": toks})
+        logp = torch.log_softmax(logits[0].float() / TEMPERATURE, dim=-1)
+        t = torch.arange(plen, len(tokens), device=dev)
+        out.append(logp[t - 1, toks[0, t]])
+    return out
 
 
 def _max_diff(a, b):
@@ -253,28 +289,60 @@ def _max_diff(a, b):
 
 
 def _recorded(torch, seqs):
-    return [torch.tensor(q.logprobs[q.prompt_len:], device="cuda")
-            for q in seqs]
+    return [torch.tensor(lp[plen:], device="cuda") for _, lp, plen in seqs]
 
 
-def profile_serving(torch, params, cfg, prompts, max_len):
-    """Trace 4 long prompts (prefill + 8 decode rounds) and print device
-    time by kernel name, and the device's busy share of the wall time."""
+def _cb_seqs(seqs):
+    """(tokens, logprobs, prompt length) of continuous-engine sequences."""
+    return [(q.tokens, q.logprobs, q.prompt_len) for q in seqs]
+
+
+def _rows_seqs(rows):
+    """(tokens, logprobs, prompt length) of fixed-engine rows."""
+    return [(r["tokens"], r["logprobs"], r["prompt_len"]) for r in rows]
+
+
+def _teacher_forced(torch, params, cfg, seqs16, run32):
+    """The teacher-forced rules: an fp32 decode within FP32_TF_TOL of an
+    fp32 forward over its tokens; a bf16 decode no further from an fp32
+    forward than BF16_TF_FACTOR times the bf16 forward is. ``run32(cfg32)``
+    decodes in fp32 and returns its sequences."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fwd16 = _forward_logprobs(torch, params, cfg, seqs16)
+    fwd32 = _forward_logprobs(torch, params, cfg32, seqs16)
+    rec16 = _recorded(torch, seqs16)
+    tf = {"bf16_decode_vs_bf16_forward": _max_diff(rec16, fwd16),
+          "bf16_decode_vs_fp32_forward": _max_diff(rec16, fwd32),
+          "bf16_forward_vs_fp32_forward": _max_diff(fwd16, fwd32)}
+    seqs32 = run32(cfg32)
+    tf["fp32_decode_vs_fp32_forward"] = _max_diff(
+        _recorded(torch, seqs32),
+        _forward_logprobs(torch, params, cfg32, seqs32))
+    bf16_tol = BF16_TF_FACTOR * tf["bf16_forward_vs_fp32_forward"]
+    print(json.dumps({"phase": "teacher_forced", "model": cfg.name,
+                      "max_abs_logprob_diff": tf,
+                      "tolerance": {"fp32_decode_vs_fp32_forward":
+                                    FP32_TF_TOL,
+                                    "bf16_decode_vs_fp32_forward":
+                                    bf16_tol}}))
+    if not tf["fp32_decode_vs_fp32_forward"] <= FP32_TF_TOL:
+        raise AssertionError(f"teacher-forced fp32 logprobs differ: {tf}")
+    if not tf["bf16_decode_vs_fp32_forward"] <= bf16_tol:
+        raise AssertionError(f"bf16 decode logprobs are further from fp32 "
+                             f"than the bf16 prefill path allows: {tf}")
+
+
+def _traced(torch, fn, phase):
+    """Run ``fn()`` under ``torch.profiler`` and print device time by kernel
+    name, the device's busy share of the wall time and the ops' self CPU
+    time. Returns what ``fn`` returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.obs import MetricsRegistry
-    from repro_torch.engines.continuous_batching import \
-        ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(
-        cfg, num_slots=NUM_SLOTS, max_len=max_len, max_new_tokens=9,
-        temperature=TEMPERATURE, seed=SEED, metrics=MetricsRegistry())
-    seqs = [eng.make_sequence(p) for p in prompts[8:12]]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        eng.generate(params, seqs)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     # device-side kernel events only: an aten op's device time repeats its
@@ -284,7 +352,7 @@ def profile_serving(torch, params, cfg, prompts, max_len):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in events)
-    print(json.dumps({"phase": "profile", "wall_us": wall_us,
+    print(json.dumps({"phase": phase, "wall_us": wall_us,
                       "kernel_names": len(events),
                       "device_busy_us": busy_us,
                       "device_idle_share": 1 - busy_us / wall_us}))
@@ -293,18 +361,32 @@ def profile_serving(torch, params, cfg, prompts, max_len):
             "name": e.key[:90], "calls": e.count,
             "device_us": e.self_device_time_total,
             "share": e.self_device_time_total / busy_us}))
-    # host side: self CPU time of the ops and runtime calls the profiler
-    # sees (it adds its own cost to each); the rest of the wall is Python
-    host = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
-    host.sort(key=lambda e: -e.self_cpu_time_total)
-    print(json.dumps({"phase": "profile_host", "wall_us": wall_us,
+    # self CPU time of the ops and runtime calls the profiler sees (it
+    # adds its own cost to each); the rest of the wall is Python
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    ops.sort(key=lambda e: -e.self_cpu_time_total)
+    print(json.dumps({"phase": f"{phase}_host", "wall_us": wall_us,
                       "ops_self_cpu_us": sum(e.self_cpu_time_total
-                                             for e in host)}))
-    for e in host[:10]:
+                                             for e in ops)}))
+    for e in ops[:10]:
         print("profile_host_op", json.dumps({
             "name": e.key[:60], "calls": e.count,
             "self_cpu_us": e.self_cpu_time_total}))
+    return out
+
+
+def profile_serving(torch, params, cfg, prompts, max_len):
+    """Trace 4 long prompts (prefill + 8 decode rounds) through the
+    continuous engine."""
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(
+        cfg, num_slots=NUM_SLOTS, max_len=max_len, max_new_tokens=9,
+        temperature=TEMPERATURE, seed=SEED, metrics=MetricsRegistry())
+    seqs = [eng.make_sequence(p) for p in prompts[8:12]]
+    _traced(torch, lambda: eng.generate(params, seqs), "profile")
 
 
 def _loss_inputs(torch, gen, N, V, dt):
@@ -341,8 +423,9 @@ def _check_dx(dtype, shape, x, t, stats, dx):
 
 
 def phase_loss_kernels(torch, timed):
-    """The three vocab-streaming kernels against their plain versions;
-    returns {name: row} at the ``timed`` (dtype, N, V)."""
+    """The three vocab-streaming kernels against their plain versions, at
+    the Qwen2.5 and the Falcon-Mamba vocab; returns {name: row} at the
+    ``timed`` (dtype, N, V)."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
@@ -354,7 +437,8 @@ def phase_loss_kernels(torch, timed):
     rows, out = [], {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for N, VV in ((4096, V), (TRAIN_ROWS, V), (7, 259)):
+        for N, VV in ((4096, V), (TRAIN_ROWS, V), (4096, SSM_VOCAB),
+                      (TRAIN_ROWS, SSM_VOCAB), (7, 259)):
             x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
                                                            dt)
             e = x.element_size()
@@ -441,11 +525,21 @@ def _plain_fused_rl_loss(logits, targets, old, ref, adv, *, clip_eps=0.2):
     return tuple(o.reshape(shape) for o in outs)
 
 
-def phase_microbatch(torch, cfg2):
-    """One GRPO micro-batch (4 x 80 tokens) at full width, 2 layers: the
-    kernels' loss against the plain loss on the same params and batch."""
-    import dataclasses
+def _watched_grads(cfg, g):
+    """The gradients a route without a backward would lose: the attention
+    weights (flash), or every mamba parameter (the scan)."""
+    if cfg.arch_type != "ssm":
+        return {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
+    out = {}
+    for k, v in g["blocks"]["mamba"].items():
+        for kk, t in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[f"{k}/{kk}".rstrip("/")] = t
+    return out
 
+
+def phase_microbatch(torch, cfg2):
+    """One GRPO micro-batch (4 x 80 tokens) at full width, cut depth: the
+    kernels' loss against the plain loss on the same params and batch."""
     from repro_torch.engines import pack_rows
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_fwd)
@@ -457,7 +551,8 @@ def phase_microbatch(torch, cfg2):
     batch = pack_rows(_train_rows(cfg2, 4, SEED), 80)
     rl = GRPOConfig(kl_coef=0.05)
     tol = {"bfloat16": 2e-2, "float32": 1e-4}
-    report = {"phase": "microbatch", "layers": cfg2.num_layers}
+    report = {"phase": "microbatch", "model": cfg2.name,
+              "layers": cfg2.num_layers}
     for compute, gtol in tol.items():
         c = dataclasses.replace(cfg2, compute_dtype=compute)
         n = fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches
@@ -488,13 +583,13 @@ def phase_microbatch(torch, cfg2):
         if not rel <= gtol:
             raise AssertionError(f"micro-batch {compute}: gradients differ "
                                  f"by {rel} relative (limit {gtol})")
-        attn = {w: float(g_k["blocks"]["attn"][w]["w"].abs().max())
-                for w in ("wq", "wk", "wv")}
-        if min(attn.values()) <= 0.0:
-            raise AssertionError(f"attention weights got no gradient: {attn}")
+        watched = {k: float(t.abs().max())
+                   for k, t in _watched_grads(cfg2, g_k).items()}
+        if not min(watched.values()) > 0.0:
+            raise AssertionError(f"parameters got no gradient: {watched}")
         report[compute] = {"stats_kernel_plain": stats,
                            "max_grad_rel_frobenius": rel, "limit": gtol,
-                           "attn_grad_max": attn, "grad_step_s": t_k,
+                           "grad_abs_max": watched, "grad_step_s": t_k,
                            "plain_grad_step_s": t_p}
         del g_k, g_p
     print(json.dumps(report))
@@ -502,34 +597,43 @@ def phase_microbatch(torch, cfg2):
     torch.cuda.empty_cache()
 
 
-def _counters():
+def _counters(*names):
+    """The kernel wrappers by name (their ``launches`` counts)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_fwd)
     from repro_torch.kernels.grpo_logprob import grpo_logprob
-    return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention,
-            "grpo_logprob": grpo_logprob,
-            "fused_rl_loss_fwd": fused_rl_loss_fwd,
-            "fused_rl_loss_bwd": fused_rl_loss_bwd}
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    every = {"flash_attention": flash_attention,
+             "decode_attention": decode_attention,
+             "grpo_logprob": grpo_logprob,
+             "fused_rl_loss_fwd": fused_rl_loss_fwd,
+             "fused_rl_loss_bwd": fused_rl_loss_bwd,
+             "mamba_scan": mamba_scan}
+    return {n: every[n] for n in names}
 
 
-def phase_trainer(torch, cfg2, smi):
-    """``Trainer.fit`` on the card; returns (trainer, launches).
+def phase_trainer(torch, cfg2, smi, backend, kernels):
+    """``Trainer.fit`` on the card; returns (trainer, launches of
+    ``kernels``, each of which must have run).
 
     lr 1e-6, a GRPO post-training rate for 7B models: at the CPU-scale
     default 3e-4, AdamW's first, sign-like steps on the KL term's
     near-zero gradients move every logit by about a nat per step, and the
     KL of random weights runs away within three steps."""
     from repro_torch.api import Trainer, TrainerConfig
+    from repro_torch.core.obs import get_registry
+    # the run's telemetry reads the process-global registry: start it empty
+    # so an earlier run's weight syncs do not count here
+    get_registry().clear()
     tcfg = TrainerConfig(
         mode="async", num_steps=3, prompts_per_step=4, group_size=4,
         rollout_workers=2, rollout_batch=2, train_micro_batch=4,
         max_new_tokens=64, seq_len=80, kl_coef=0.05, lr=1e-6,
-        rollout_backend="continuous", staleness=1, seed=SEED)
+        rollout_backend=backend, staleness=1, seed=SEED)
     trainer = Trainer(tcfg, model_cfg=cfg2)
-    counters = _counters()
+    counters = _counters(*kernels)
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -557,7 +661,8 @@ def phase_trainer(torch, cfg2, smi):
     sync = [v for v in tel["metrics"].get("weight_sync_seconds",
                                           {}).get("values", [])]
     print(json.dumps({
-        "phase": "trainer", "card": smi, "layers": cfg2.num_layers,
+        "phase": "trainer", "card": smi, "model": cfg2.name,
+        "layers": cfg2.num_layers, "rollout_backend": backend,
         "steps": len(steps), "samples": res.samples_trained,
         "wall_s": wall, "samples_per_s": res.samples_trained / wall,
         "max_staleness": max(res.staleness_seen), "launches": launches,
@@ -569,41 +674,140 @@ def phase_trainer(torch, cfg2, smi):
 
 def profile_actor_update(torch, trainer):
     """Trace one actor update (a micro-batch of 4 x 80 tokens through
-    forward, loss and backward, then AdamW) on the trainer's engine."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    forward, loss and backward, then AdamW) on the trainer's engine; the
+    phase is named after the model."""
     eng = trainer.train_engine
     eng.global_batch = 4
     rows = _train_rows(trainer.cfg, 4, SEED + 1)
     eng.update_actor(rows)                      # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        out = eng.update_actor(rows)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    out = _traced(torch, lambda: eng.update_actor(rows),
+                  f"profile_actor_update {trainer.cfg.name}")
     if not out or not math.isfinite(out["loss"]):
         raise AssertionError(f"actor update: {out}")
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in events)
-    print(json.dumps({"phase": "profile_actor_update", "wall_us": wall_us,
-                      "kernel_names": len(events),
-                      "device_busy_us": busy_us,
-                      "device_idle_share": 1 - busy_us / wall_us}))
-    for e in events[:15]:
-        print("profile_kernel", json.dumps({
-            "name": e.key[:90], "calls": e.count,
-            "device_us": e.self_device_time_total,
-            "share": e.self_device_time_total / busy_us}))
+
+
+def phase_mamba_scan(torch, sm_clock_hz, timed):
+    """``mamba_scan`` against its plain version in fp32, |err| <= 1e-4 +
+    1e-4 |ref| (the sums run in another order); B and C are strided views
+    of one projection output, as the model hands them over. The bound is
+    the larger of the bytes over the memory rate and the B*S*D*N
+    exponentials over the special-function units' rate at the card's
+    maximum SM clock. Returns the row at the ``timed`` (B, S, D, N)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    sfu_per_s = SFU_PER_SM_CLOCK * SMS * sm_clock_hz
+    rows, out = [], None
+    for B, S, D, N in ((1, SEQ_LEN_MAX, 8192, 16), SSM_REF_ROWS,
+                       (2, 79, 8192, 16), (3, 130, 96, 8)):
+        # the model's ranges: A = -exp(a_log) = -(1..N), dt near
+        # softplus(-4.6) = 0.01
+        x = torch.randn((B, S, D), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(
+            0.5 * torch.randn((B, S, D), generator=gen, device=dev) - 4.6)
+        a = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+            D, N).contiguous()
+        dbc = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev)
+        b, c = dbc[..., 256:256 + N], dbc[..., 256 + N:]
+        y = mamba_scan(x, dt, a, b, c)
+        err = _check("mamba_scan", "float32", (B, S, D, N), y,
+                     mamba_scan_ref(x, dt, a, b, c))
+        sets = _copies(torch, (x, dt, a, b, c))
+        nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = B * S * D * N / sfu_per_s * 1e3
+        row = dict(kernel="mamba_scan", dtype="float32", B=B, S=S, D=D, N=N,
+                   max_abs_err=err,
+                   ms=_time_ms(torch, mamba_scan, sets, 20),
+                   plain_ms=_time_ms(torch, mamba_scan_ref, sets, 2),
+                   library_ms=None, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes_ms=t_bytes, sfu_ms=t_ops)
+        rows.append(row)
+        if (B, S, D, N) == timed:
+            out = row
+        del x, dt, a, dbc, b, c, y, sets
+    for row in rows:
+        print("kernel_vs_plain", json.dumps(row))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm_serving(torch, cfg, smi):
+    """Full-width Falcon-Mamba-7B through the fixed engine, then the
+    teacher-forced check (its full forwards run ``mamba_scan``) and a
+    trace of a short serving run. Returns the launches of ``mamba_scan``
+    over serving and the check."""
+    import numpy as np
+
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.models import (count_params, decode_step, init_cache,
+                                    init_params)
+    from repro_torch.rl import generate
+    t0 = time.monotonic()
+    params = init_params(SEED, cfg)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+          f"d_inner={cfg.d_inner} vocab={cfg.vocab_size} "
+          f"params={count_params(params)} ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}) init {time.monotonic() - t0:.3f}s")
+    # two short task prompts and two byte prompts cut to SSM_PROMPT_MAX
+    prompts = [p[:SSM_PROMPT_MAX] for p in make_prompts(SEED)[6:10]]
+    mamba_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    rows = generate(params, cfg, prompts, SEED, max_new_tokens=SSM_NEW,
+                    temperature=TEMPERATURE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_new = sum(len(r["response_ids"]) for r in rows)
+    for r in rows:
+        lp = r["logprobs"][r["prompt_len"]:]
+        if not (r["tokens"] < cfg.vocab_size).all() or \
+                not all(math.isfinite(x) and x <= 0.0 for x in lp):
+            raise AssertionError(f"{cfg.name}: bad tokens or logprobs")
+    # one decode step over the 4 requests, timed alone
+    cache = init_cache(cfg, len(prompts), 0)
+    tok = torch.full((len(prompts),), 3, device="cuda")
+    steps = []
+    with torch.no_grad():
+        for i in range(13):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            decode_step(params, cfg, cache, tok, torch.full_like(tok, i))
+            torch.cuda.synchronize()
+            steps.append(time.monotonic() - t1)
+    print(json.dumps({
+        "phase": "ssm_fixed_engine", "model": cfg.name, "card": smi,
+        "layers": cfg.num_layers, "requests": len(rows),
+        "prompt_tokens": [r["prompt_len"] for r in rows],
+        "decode_steps": len(rows[0]["tokens"]) - 1, "new_tokens": n_new,
+        "wall_s": wall, "tokens_per_s": n_new / wall,
+        "decode_step_s_p50": float(np.median(steps[3:])),
+        "decode_step_s": steps[3:], "peak_mem_gb": peak}))
+    del cache
+
+    def run32(cfg32):
+        return _rows_seqs(generate(params, cfg32, prompts[:2], SEED,
+                                   max_new_tokens=8,
+                                   temperature=TEMPERATURE))
+    _teacher_forced(torch, params, cfg, _rows_seqs(rows), run32)
+    launches = mamba_scan.launches
+    if launches == 0:
+        raise AssertionError("the ssm forward never launched mamba_scan")
+    print(json.dumps({"phase": "ssm_serving_launches",
+                      "mamba_scan": launches}))
+    _traced(torch, lambda: generate(
+        params, cfg, [p[:16] for p in prompts], SEED, max_new_tokens=4,
+        temperature=TEMPERATURE), "profile_ssm_serving")
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
     torch = _import_port()
-    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.obs import MetricsRegistry
@@ -711,38 +915,22 @@ def main():
 
     # -- 5. teacher-forced consistency -------------------------------------
     by_uid = sorted(done, key=lambda q: q.uid)
-    pair = [by_uid[0], by_uid[-1]]               # a short and the longest
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    fwd16 = [_forward_logprobs(torch, params, cfg, q) for q in pair]
-    fwd32 = [_forward_logprobs(torch, params, cfg32, q) for q in pair]
-    rec16 = _recorded(torch, pair)
-    tf = {"bf16_decode_vs_bf16_forward": _max_diff(rec16, fwd16),
-          "bf16_decode_vs_fp32_forward": _max_diff(rec16, fwd32),
-          "bf16_forward_vs_fp32_forward": _max_diff(fwd16, fwd32)}
-    eng32 = ContinuousBatchingEngine(
-        cfg32, num_slots=2, max_len=max_len,
-        max_new_tokens=8, temperature=TEMPERATURE, seed=SEED,
-        dtype=torch.float32, metrics=MetricsRegistry())
-    done32, _ = eng32.generate(params, [eng32.make_sequence(prompts[0]),
-                                        eng32.make_sequence(prompts[9])])
-    tf["fp32_decode_vs_fp32_forward"] = _max_diff(
-        _recorded(torch, done32),
-        [_forward_logprobs(torch, params, cfg32, q) for q in done32])
-    bf16_tol = BF16_TF_FACTOR * tf["bf16_forward_vs_fp32_forward"]
-    print(json.dumps({"phase": "teacher_forced", "max_abs_logprob_diff": tf,
-                      "tolerance": {"fp32_decode_vs_fp32_forward":
-                                    FP32_TF_TOL,
-                                    "bf16_decode_vs_fp32_forward":
-                                    bf16_tol}}))
-    if not tf["fp32_decode_vs_fp32_forward"] <= FP32_TF_TOL:
-        raise AssertionError(f"teacher-forced fp32 logprobs differ: {tf}")
-    if not tf["bf16_decode_vs_fp32_forward"] <= bf16_tol:
-        raise AssertionError(f"bf16 decode logprobs are further from fp32 "
-                             f"than the bf16 prefill path allows: {tf}")
+
+    def run32(cfg32):
+        eng32 = ContinuousBatchingEngine(
+            cfg32, num_slots=2, max_len=max_len,
+            max_new_tokens=8, temperature=TEMPERATURE, seed=SEED,
+            dtype=torch.float32, metrics=MetricsRegistry())
+        done32, _ = eng32.generate(params, [eng32.make_sequence(prompts[0]),
+                                            eng32.make_sequence(prompts[9])])
+        return _cb_seqs(done32)
+    # a short sequence and the longest
+    _teacher_forced(torch, params, cfg, _cb_seqs([by_uid[0], by_uid[-1]]),
+                    run32)
 
     # -- 6. where the device time goes ---------------------------------------
     profile_serving(torch, params, cfg, prompts, max_len)
-    del params, eng, eng32, done, done32, seqs, by_uid, pair
+    del params, eng, done, seqs, by_uid
     torch.cuda.empty_cache()
 
     # -- 7. the training path's kernels vs plain versions ---------------------
@@ -754,14 +942,44 @@ def main():
     phase_microbatch(torch, cfg2)
 
     # -- 9. the trainer -----------------------------------------------------
-    trainer, train_launches = phase_trainer(torch, cfg2, smi)
+    trainer, train_launches = phase_trainer(
+        torch, cfg2, smi, "continuous",
+        ("flash_attention", "decode_attention", "grpo_logprob",
+         "fused_rl_loss_fwd", "fused_rl_loss_bwd"))
     for name in ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd"):
         launches[name] = train_launches[name]
 
     # -- 10. where an actor update's device time goes ------------------------
     profile_actor_update(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
 
-    # -- 11. output -----------------------------------------------------------
+    # -- 11. the selective scan vs its plain version --------------------------
+    ssm = get_config("falcon_mamba_7b")
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    print(f"max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+    krows["mamba_scan"] = phase_mamba_scan(torch, sm_clock_hz, SSM_REF_ROWS)
+
+    # -- 12-14. Falcon-Mamba-7B served at full width --------------------------
+    phase_ssm_serving(torch, ssm, smi)
+
+    # -- 15. one GRPO micro-batch of Falcon-Mamba-7B --------------------------
+    ssm4 = dataclasses.replace(ssm, num_layers=SSM_TRAIN_LAYERS)
+    phase_microbatch(torch, ssm4)
+
+    # -- 16. the trainer on Falcon-Mamba-7B -----------------------------------
+    trainer, ssm_launches = phase_trainer(
+        torch, ssm4, smi, "fixed",
+        ("mamba_scan", "grpo_logprob", "fused_rl_loss_fwd",
+         "fused_rl_loss_bwd"))
+    launches["mamba_scan"] = ssm_launches["mamba_scan"]
+    profile_actor_update(torch, trainer)
+    del trainer
+
+    # -- 17. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",
@@ -771,7 +989,8 @@ def main():
         "fused_rl_loss_fwd":
             "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:145",
         "fused_rl_loss_bwd":
-            "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:178"}
+            "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:178",
+        "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:61"}
     files = {"fused_rl_loss_fwd": "fused_rl_loss",
              "fused_rl_loss_bwd": "fused_rl_loss"}
     kernels = []

@@ -26,8 +26,9 @@ benchmarks; they are thin compositions of the staged verbs above.
 
 Every verb runs under ``torch.no_grad()``: grad mode is per thread and on
 by default in the stage runner's worker threads, and the rollout's
-kernels (flash prefill, decode attention, ``grpo_logprob``) have no
-backward, so they raise rather than record a graph.
+kernels (flash prefill, decode attention, ``mamba_scan``,
+``grpo_logprob``) have no backward, so they raise rather than record a
+graph.
 """
 from __future__ import annotations
 
@@ -261,8 +262,9 @@ class RolloutEngine(RLAdapter):
     def _ref_logprobs(self, responses, params=None) -> List[np.ndarray]:
         """Per-token logprobs of the frozen reference over full sequences
         (position 0 gets 0.0 — no prediction for the first token): one
-        forward through the flash kernel, then ``token_logprobs`` through
-        the ``grpo_logprob`` kernel (their plain versions on the CPU)."""
+        forward through the flash or ``mamba_scan`` kernel, then
+        ``token_logprobs`` through the ``grpo_logprob`` kernel (their plain
+        versions on the CPU)."""
         from repro_torch.models import forward
         from repro_torch.rl.loss import token_logprobs
         params = self.ref_params if params is None else params

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures by source, then entry: every entry returns
 # cudaGetLastError() after its launch. dtype: 0 = float32, 1 = bfloat16.
 SIGNATURES = {
@@ -49,6 +50,11 @@ SIGNATURES = {
                               _I, _F, _I, _P],
         # logits, targets, lse, xbar, dlp, g_ent, dx, N, V, dtype, stream
         "fused_rl_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "mamba_scan": {
+        # x, dt, A, B, C, y, B, S, D, N, B's batch and time strides, C's
+        # batch and time strides (elements), stream
+        "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                       _L, _P]},
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,7 @@ The kernel is forward only, as the reference's Pallas kernel is, and the
 ctypes launch records no autograd graph: on CUDA tensors that require grad
 under grad mode the wrapper raises instead of returning an output that
 would silently drop the gradient of q, k and v. The training forward takes
-the plain attention route (``forward(..., use_flash=False)``)."""
+the plain attention route (``forward(..., use_kernels=False)``)."""
 import torch
 
 from repro_torch.kernels import _build

@@ -6,11 +6,11 @@ Three entry points, as in the reference:
   * ``init_kv_cache`` — stacked-over-layers cache tensors.
 
 Causal self-attention goes through ``kernels/flash_attention`` unless the
-caller passes ``use_flash=False``, and decode attention through
+caller passes ``use_kernels=False``, and decode attention through
 ``kernels/decode_attention``: on CUDA tensors those launch the hand-written
 kernels, on CPU tensors they run the kernels' plain versions. The flash
 kernel has no backward (nor has the reference's Pallas kernel), so the
-training forward takes ``use_flash=False``: ``sdpa`` with a causal mask
+training forward takes ``use_kernels=False``: ``sdpa`` with a causal mask
 (softmax weights cast to the compute dtype before ``p@v``), the
 reference's plain path (``rl/grpo.py:54`` calls ``forward`` without
 ``use_pallas``). ``sdpa`` also serves cross- and non-causal attention.
@@ -69,7 +69,7 @@ def causal_mask(sq, sk, window=0, device=None):
 
 
 def attend_full_kv(p, x, cfg, positions=None, *, window=0, cross_kv=None,
-                   causal=True, use_flash=True):
+                   causal=True, use_kernels=True):
     """``attend_full`` that also returns the rotated K and projected V it
     used, so the prefill cache reuses them instead of projecting again."""
     B, S, _ = x.shape
@@ -86,7 +86,7 @@ def attend_full_kv(p, x, cfg, positions=None, *, window=0, cross_kv=None,
     else:
         k, v = cross_kv
 
-    if use_flash and cross_kv is None and causal:
+    if use_kernels and cross_kv is None and causal:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               window=window)
     else:
@@ -102,16 +102,16 @@ def attend_full_kv(p, x, cfg, positions=None, *, window=0, cross_kv=None,
 
 
 def attend_full(p, x, cfg, positions=None, *, window=0, cross_kv=None,
-                causal=True, use_flash=True):
+                causal=True, use_kernels=True):
     """Full-sequence attention (train / prefill / encoder / cross).
 
     cross_kv: optional (k_src, v_src) already-projected encoder memory for
-    cross-attention (no mask). use_flash=False takes the plain,
+    cross-attention (no mask). use_kernels=False takes the plain,
     differentiable route for causal self-attention.
     """
     return attend_full_kv(p, x, cfg, positions, window=window,
                           cross_kv=cross_kv, causal=causal,
-                          use_flash=use_flash)[0]
+                          use_kernels=use_kernels)[0]
 
 
 def project_cross_kv(p, memory, cfg):

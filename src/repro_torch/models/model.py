@@ -4,8 +4,8 @@
     logits, aux = forward(params, cfg, batch)              # train/prefill
     logits, cache = decode_step(params, cfg, cache, token, pos)
 
-``batch`` is a dict holding tokens (B,S). Only the dense family is ported;
-the others raise ``NotImplementedError``.
+``batch`` is a dict holding tokens (B,S). The dense and ssm families are
+ported; the others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,17 +27,18 @@ def init_params(seed: int, cfg, *, device=None):
     return transformer.init_lm(gen, cfg)
 
 
-def forward(params, cfg, batch, *, window=0, use_flash=True,
+def forward(params, cfg, batch, *, window=0, use_kernels=True,
             return_cache=False):
     """Full-sequence forward. Returns (logits, aux[, cache]).
 
-    ``use_flash`` chooses the causal attention route, as the reference's
-    ``use_pallas`` does: True (serving, prefill, reference inference) takes
-    ``kernels/flash_attention``, forward only; False (the actor update)
-    takes the plain, differentiable ``sdpa``."""
+    ``use_kernels`` chooses the route, as the reference's ``use_pallas``
+    does: True (serving, prefill, reference inference) takes the
+    forward-only kernels, ``kernels/flash_attention`` for causal attention
+    and ``kernels/mamba_scan`` for the ssm scan; False (the actor update)
+    takes the plain, differentiable ``sdpa`` and scan."""
     logits, aux, cache = transformer.forward_lm(
         params, cfg, batch["tokens"], window=window,
-        return_cache=return_cache, use_flash=use_flash)
+        return_cache=return_cache, use_kernels=use_kernels)
     if return_cache:
         return logits, aux, cache
     return logits, aux

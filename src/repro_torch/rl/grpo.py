@@ -1,6 +1,6 @@
 """GRPO actor-update step (the paper's evaluated RL algorithm, §6.1).
 
-``grpo_loss_fn`` is forward (plain attention route) + the fused actor loss
+``grpo_loss_fn`` is forward (plain routes) + the fused actor loss
 (+ optional KL-to-reference); ``grpo_grad_step`` its gradients, which the
 train engine accumulates over streamed micro-batches before one AdamW step.
 
@@ -43,13 +43,15 @@ def grpo_loss_fn(params, cfg, batch, rl: GRPOConfig, ref_logprob=None):
       advantage (B,)          — group-relative advantage per sample
       ref_logprob (B, S)      — optional frozen-reference logprobs (KL)
 
-    The forward takes the plain attention route (``use_flash=False``), as
-    the reference's does: the flash kernel has no backward.
+    The forward takes the plain attention and scan routes
+    (``use_kernels=False``), as the reference's does: the flash and
+    ``mamba_scan`` kernels have no backward.
     """
     if ref_logprob is None:
         ref_logprob = batch.get("ref_logprob")
     tokens = batch["tokens"]
-    logits, aux = forward(params, cfg, {"tokens": tokens}, use_flash=False)
+    logits, aux = forward(params, cfg, {"tokens": tokens},
+                          use_kernels=False)
     S = tokens.shape[1]
     logits = logits[:, -S:, :]
     mask = batch["response_mask"][:, 1:]
@@ -74,8 +76,8 @@ def grpo_grad_step(params, cfg, rl: GRPOConfig, batch):
     in ``params`` (which rollout workers may be sampling with) are neither
     marked as requiring grad nor given a ``.grad``; grad mode is switched
     on here because the caller's thread may have it off. Every parameter
-    of a dense model reaches the loss, so one that autograd did not reach
-    (a route that recorded no graph) raises."""
+    of a dense or ssm model reaches the loss, so one that autograd did not
+    reach (a route that recorded no graph) raises."""
     live = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = grpo_loss_fn(tree_unflatten(params, live), cfg,

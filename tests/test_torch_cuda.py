@@ -25,6 +25,8 @@ from repro_torch.kernels.fused_rl_loss import (fused_rl_loss,
                                                fused_rl_loss_fwd_ref,
                                                fused_rl_loss_oracle)
 from repro_torch.kernels.grpo_logprob import grpo_logprob, grpo_logprob_ref
+from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
+                                            scan_from)
 
 # fp32: summation order differs on the card; bf16: one rounding of the output
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -140,9 +142,11 @@ def test_engine_on_card_matches_cpu_forward(cuda_device):
 
 
 # The vocab-streaming kernels at the trainer's shapes: a micro-batch of
-# 4 rows x 79 tokens, 4096 rows, full Qwen2.5 vocab; V=259 (byte vocab:
-# bf16 rows start at 518-byte offsets, off the 16-byte grid) and 2053.
-VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064)]
+# 4 rows x 79 tokens, 4096 rows, full Qwen2.5 vocab and full Falcon-Mamba
+# vocab (65,024); V=259 (byte vocab: bf16 rows start at 518-byte offsets,
+# off the 16-byte grid) and 2053.
+VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
+                (316, 65024), (4096, 65024)]
 
 
 def _loss_inputs(gen, N, V, dtype, device):
@@ -273,3 +277,100 @@ def test_trainer_on_card_launches_every_kernel(cuda_device):
                                 rollout_backend="continuous")).fit()
     assert res.samples_trained == 8 and max(res.staleness_seen) <= 2
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+# The selective scan at the reference kernel test's shapes and its
+# distributions (A = -|normal|), ragged S and D, the trainer's
+# reference-inference rows (16 x 80 at Falcon-Mamba's d_inner) and the long
+# prefill. Over long S, channels with A near 0 carry their state with a gain
+# of 1/(1 - exp(dt A)) (thousands at |A| ~ 1e-3), which scales up the 1-2
+# ulp rounding of exp in either fp32 version beyond 1e-4; the long shapes
+# take the model's ranges instead (A = -(1..N) as a_log's init, dt near
+# softplus(-4.6)), and the kernel is held to a float64 scan there.
+SCAN_SHAPES = [(1, 128, 128, 16, "reference"), (2, 256, 256, 8, "reference"),
+               (2, 79, 96, 16, "reference"), (1, 33, 40, 8, "reference"),
+               (16, 80, 8192, 16, "reference"), (1, 2048, 8192, 16, "model")]
+
+
+def _scan_inputs(gen, B, S, D, N, dist, device):
+    """x, dt, a, and B and C as strided views of one projection output."""
+    x = _randn(gen, (B, S, D), torch.float32, device)
+    z = _randn(gen, (B, S, D), torch.float32, device)
+    if dist == "reference":
+        dt = 0.1 * torch.nn.functional.softplus(z)
+        a = -_randn(gen, (D, N), torch.float32, device).abs()
+    else:
+        dt = torch.nn.functional.softplus(0.5 * z - 4.6)
+        a = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=device).expand(D, N).contiguous()
+    dbc = _randn(gen, (B, S, 7 + 2 * N), torch.float32, device)
+    return x, dt, a, dbc[..., 7:7 + N], dbc[..., 7 + N:]
+
+
+@pytest.mark.parametrize("B,S,D,N,dist", SCAN_SHAPES)
+def test_mamba_scan_kernel_matches_plain(cuda_device, B, S, D, N, dist):
+    """fp32, |err| <= 1e-4 + 1e-4 |ref| (the sums run in another order);
+    B and C are strided views of one projection output, as in the model."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D)
+    x, dt, a, b, c = _scan_inputs(gen, B, S, D, N, dist, cuda_device)
+    assert not b.is_contiguous()
+    n = mamba_scan.launches
+    y = mamba_scan(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == n + 1
+    assert y.dtype == torch.float32 and y.shape == (B, S, D)
+    _assert_close_rel(y, mamba_scan_ref(x, dt, a, b, c), 1e-4)
+
+
+@pytest.mark.parametrize("dist", ["reference", "model"])
+def test_mamba_scan_kernel_is_as_close_to_fp64_as_plain(cuda_device, dist):
+    """At the long prefill, against the recurrence in float64: the kernel's
+    largest error is within twice the plain fp32 version's (plus 1e-6),
+    with the reference test's A = -|normal| too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ins = _scan_inputs(gen, 1, 2048, 8192, 16, dist, cuda_device)
+    h0 = torch.zeros((1, 8192, 16), dtype=torch.float64, device=cuda_device)
+    truth = scan_from(*(t.double() for t in ins), h0)[0]
+    with torch.no_grad():
+        err_k = (mamba_scan(*ins).double() - truth).abs().max().item()
+    err_p = (mamba_scan_ref(*ins).double() - truth).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+def test_mamba_scan_raises_under_grad_on_card(cuda_device):
+    x = torch.zeros((1, 4, 8), device=cuda_device, requires_grad=True)
+    a = torch.zeros((8, 16), device=cuda_device)
+    bc = torch.zeros((1, 4, 16), device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mamba_scan(x, x, a, bc, bc)
+    with torch.no_grad():
+        assert mamba_scan(x, x, a, bc, bc).shape == x.shape
+
+
+def test_ssm_forward_and_decode_on_card_match_cpu(cuda_device):
+    """A reduced Falcon-Mamba on the card, fp32: the full forward (the scan
+    kernel) and step-by-step decode against a CPU forward over the same
+    weights."""
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    params = init_params(0, cfg, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 259, (2, 21)))
+    n = mamba_scan.launches
+    with torch.no_grad():
+        got, _ = forward(params, cfg, {"tokens": toks.to(cuda_device)})
+        want, _ = forward(_to_cpu(params), cfg, {"tokens": toks})
+        cache = init_cache(cfg, 2, 21, device=cuda_device)
+        steps = []
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, t].to(cuda_device),
+                                    torch.full((2,), t, device=cuda_device))
+            steps.append(lg)
+    assert mamba_scan.launches == n + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(torch.stack(steps, 1).cpu(), want,
+                               atol=1e-4, rtol=1e-4)
