@@ -24,11 +24,12 @@ which raises on failure:
 6. a ``torch.profiler`` trace of a short serving run: device time by
    kernel and the device's idle share; then the serving weights are freed;
 7. the training path's kernels (``grpo_logprob``, ``fused_rl_loss``
-   forward and backward) against their plain versions at vocab 152,064
-   (4096 rows, and the trainer's micro-batch of 4 x 79 rows) and at the
-   byte vocab 259 (rows off the 16-byte grid), bf16 and fp32, timed beside
-   the plain versions, a one-call ``torch.log_softmax``/``torch.softmax``
-   yardstick and the card's bound;
+   forward and backward) against their plain versions at vocabs 152,064
+   and 65,024 (4096 rows, and the trainer's micro-batch of 4 x 79 rows),
+   at 256,000 (the trainer's rows) and at the byte vocab 259 (rows off the
+   16-byte grid), bf16 and fp32, timed beside the plain versions, a
+   one-call ``torch.log_softmax``/``torch.softmax`` yardstick and the
+   card's bound;
 8. one GRPO micro-batch of full-width Qwen2.5-7B cut to 2 layers, through
    the kernels and through the plain loss, in bf16 and fp32 compute: loss,
    stats and every parameter's gradient agree, and the attention weights
@@ -58,11 +59,34 @@ which raises on failure:
     only one the ssm family has): the launch counts of ``mamba_scan``,
     ``grpo_logprob`` and both ``fused_rl_loss`` kernels over the run; then
     a trace of one of its actor updates;
-17. a JSON line per kernel and, last, the device line.
+17. ``rglru_scan`` against its plain version in fp32 at the trainer's
+    reference-inference rows (4 x 80 x 4096), a long prefill (B=1,
+    S=2048) and two ragged shapes, timed beside the plain version, its C
+    entry alone and the byte bound (no single PyTorch call computes the
+    recurrence); ``flash_attention`` (B=1, S=4096, window 2048, and the
+    trainer's 4 x 80 tokens at windows 2048 and 32) and
+    ``decode_attention`` (rings of 2048, 80 and 32 keys, full and partly
+    filled) at RecurrentGemma-9B's 16 query heads, 1 KV head and hd 256,
+    bf16 and fp32, beside SDPA;
+18. full-width RecurrentGemma-9B (all 38 layers, vocab 256,000, random
+    weights from a seed) served through the fixed engine, as in phase 12;
+19. the teacher-forced rules for it (full forwards through ``rglru_scan``
+    and ``flash_attention``, decode through ``decode_attention``; the
+    fp32 run's decode loop keeps an fp32 KV cache);
+20. a trace of a short hybrid serving run; then the weights are freed;
+21. the same rules at full width cut to 4 layers with a 32-key window,
+    over 80-token sequences: the decode ring wraps and the forwards cross
+    the flash window's band;
+22. one GRPO micro-batch of RecurrentGemma-9B cut to 4 layers, as phase
+    15; every RG-LRU parameter and attention weight gets a gradient;
+23. ``Trainer.fit`` on that model, as phase 16, counting ``rglru_scan``,
+    both attention kernels, ``grpo_logprob`` and both ``fused_rl_loss``
+    kernels; then a trace of one of its actor updates;
+24. a JSON line per kernel and, last, the device line.
 
-Phases 3, 4, 9, 12 and 16 set the launch counts of the kernels they
-check to 0 just before they start and read them just after (phase 12
-reads after the teacher-forced forwards of phase 13).
+Phases 3, 4, 9, 12, 16, 18 and 23 set the launch counts of the kernels
+they check to 0 just before they start and read them just after (phases
+12 and 18 read after the teacher-forced forwards of phases 13 and 19).
 """
 from __future__ import annotations
 
@@ -96,11 +120,18 @@ SEQ_LEN_MAX = 2048         # longest byte prompt
 TRAIN_LAYERS = 2           # depth of the training phases (width is full)
 SSM_TRAIN_LAYERS = 4       # the same for Falcon-Mamba-7B (28 GB at 64)
 TRAIN_ROWS = 4 * 79        # a trainer micro-batch: 4 rows of seq_len 80
-SSM_PROMPT_MAX = 64        # Falcon-Mamba serving: prompt tokens at most
-SSM_NEW = 16               # and new tokens per request
+FIXED_PROMPT_MAX = 64      # fixed-engine serving (Falcon-Mamba,
+FIXED_NEW = 16             # RecurrentGemma): prompt tokens at most, and
+                           # new tokens per request
 SSM_VOCAB = 65_024         # Falcon-Mamba-7B's vocab
+HYB_VOCAB = 256_000        # RecurrentGemma-9B's vocab
 SSM_REF_ROWS = (4, 80, 8192, 16)   # mamba_scan in the trainer's reference
                                    # inference: 4 rows x 80 x d_inner, N
+HYB_TRAIN_LAYERS = 4       # RecurrentGemma-9B's training depth: one
+                           # (rec, rec, attention) tile and one rec layer
+HYB_REF_ROWS = (4, 80, 4096)   # rglru_scan in the trainer's reference
+                               # inference: 4 rows x 80 x rnn_width
+RING_WINDOW = 32           # local window of the ring-wrap check
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
 SMS = 132
 MAX_NEW = 32
@@ -162,84 +193,99 @@ def _check(name, dtype, shape, out, ref):
     return err
 
 
-def phase_kernels(torch, max_len, timed):
-    """Kernel vs plain version; returns {name: row} for the timed shapes."""
+def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
+    """``decode_attention`` against its plain version on random q, K, V
+    with ``fill`` (B,) valid keys a row, timed beside the plain version,
+    SDPA and the bound; returns the row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for shape in ((B, 1, H, hd), (B, S, KVH, hd),
+                             (B, S, KVH, hd)))
+    valid = torch.arange(S, device=dev)[None, :] < fill[:, None]
+    err = _check("decode_attention", dtype, (B, S, H, KVH, hd),
+                 decode_attention(q, k, v, valid),
+                 decode_attention_ref(q, k, v, valid))
+    sets = _copies(torch, (q, k, v, valid))
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid, q))
+    bound, by = _bound(nbytes, 4 * B * H * S * hd, dtype)
+    return dict(
+        kernel="decode_attention", dtype=dtype, B=B, S=S, H=H, KVH=KVH,
+        hd=hd, filled=fill.tolist(), max_abs_err=err,
+        ms=_time_ms(torch, decode_attention, sets, 50),
+        plain_ms=_time_ms(torch, decode_attention_ref, sets, 10),
+        library_ms=_time_ms(
+            torch, lambda q, k, v, m: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m[:, None, None, :], enable_gqa=True), sets, 50),
+        bound_ms=bound, bound_by=by)
+
+
+def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
+    """``flash_attention`` against its plain version on random q, K, V,
+    timed beside the plain version, SDPA with the band as its mask and the
+    bound (operations over the (query, visible key) pairs); returns the
+    row."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for shape in ((B, S, H, hd), (B, S, KVH, hd),
+                             (B, S, KVH, hd)))
+    err = _check("flash_attention", dtype, (B, S, H, KVH, hd, window),
+                 flash_attention(q, k, v, window=window),
+                 flash_attention_ref(q, k, v, window=window))
+    sets = _copies(torch, (q, k, v))
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    band = kpos <= qpos
+    if window > 0:
+        band &= kpos > qpos - window
+    pairs = int(band.sum().item())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    bound, by = _bound(nbytes, 4 * B * H * hd * pairs, dtype)
+    return dict(
+        kernel="flash_attention", dtype=dtype, B=B, S=S, H=H, KVH=KVH,
+        hd=hd, window=window, max_abs_err=err,
+        ms=_time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, window=window), sets, 10),
+        plain_ms=_time_ms(torch, lambda q, k, v: flash_attention_ref(
+            q, k, v, window=window), sets, 3),
+        library_ms=_time_ms(
+            torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=band, enable_gqa=True), sets, 10),
+        bound_ms=bound, bound_by=by)
+
+
+def phase_kernels(torch, max_len, timed):
+    """Kernel vs plain version at Qwen2.5-7B's attention shapes (28 heads,
+    4 KV heads, hd 128); returns {name: row} for the timed shapes."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     H, KVH, hd = 28, 4, 128
     rows, out = [], {}
-
-    def randn(shape, dt):
-        return torch.randn(shape, generator=gen, device=dev).to(dt)
-
     for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
         for B, S, ragged in ((4, max_len, False), (4, 4099, True)):
-            q, k, v = (randn((B, 1, H, hd), dt), randn((B, S, KVH, hd), dt),
-                       randn((B, S, KVH, hd), dt))
             lo = 0 if ragged else 1        # ragged: one row with no key
             fill = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
             fill[0] = lo
-            valid = torch.arange(S, device=dev)[None, :] < fill[:, None]
-            err = _check("decode_attention", dtype, (B, S),
-                         decode_attention(q, k, v, valid),
-                         decode_attention_ref(q, k, v, valid))
-            sets = _copies(torch, (q, k, v, valid))
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (q, k, v, valid, q))
-            bound, by = _bound(nbytes, 4 * B * H * S * hd, dtype)
-            row = dict(
-                kernel="decode_attention", dtype=dtype, B=B, S=S,
-                max_abs_err=err,
-                ms=_time_ms(torch, decode_attention, sets, 50),
-                plain_ms=_time_ms(torch, decode_attention_ref, sets, 10),
-                library_ms=_time_ms(
-                    torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-                        q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), attn_mask=m[:, None, None, :],
-                        enable_gqa=True), sets, 50),
-                bound_ms=bound, bound_by=by)
+            row = _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill)
             rows.append(row)
             if (dtype, B, S) == timed["decode_attention"]:
                 out["decode_attention"] = row
-
         for B, S, window in ((4, 8, 0), (4, 8, 256), (4, 1000, 0),
                              (4, 1000, 256), (4, 2048, 0), (4, 2048, 256),
                              (1, SEQ_LEN_MAX, 0)):
-            q, k, v = (randn((B, S, H, hd), dt), randn((B, S, KVH, hd), dt),
-                       randn((B, S, KVH, hd), dt))
-            err = _check("flash_attention", dtype, (B, S, window),
-                         flash_attention(q, k, v, window=window),
-                         flash_attention_ref(q, k, v, window=window))
-            sets = _copies(torch, (q, k, v))
-            qpos = torch.arange(S, device=dev)[:, None]
-            kpos = torch.arange(S, device=dev)[None, :]
-            band = kpos <= qpos
-            if window > 0:
-                band &= kpos > qpos - window
-            pairs = int(band.sum().item())
-            nbytes = 2 * q.numel() * q.element_size() \
-                + 2 * k.numel() * k.element_size()
-            bound, by = _bound(nbytes, 4 * B * H * hd * pairs, dtype)
-            row = dict(
-                kernel="flash_attention", dtype=dtype, B=B, S=S,
-                window=window, max_abs_err=err,
-                ms=_time_ms(torch, lambda q, k, v: flash_attention(
-                    q, k, v, window=window), sets, 10),
-                plain_ms=_time_ms(torch, lambda q, k, v: flash_attention_ref(
-                    q, k, v, window=window), sets, 3),
-                library_ms=_time_ms(
-                    torch, lambda q, k, v: F.scaled_dot_product_attention(
-                        q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), attn_mask=band,
-                        enable_gqa=True), sets, 10),
-                bound_ms=bound, bound_by=by)
+            row = _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window)
             rows.append(row)
             if (dtype, B, S, window) == timed["flash_attention"]:
                 out["flash_attention"] = row
@@ -424,8 +470,8 @@ def _check_dx(dtype, shape, x, t, stats, dx):
 
 def phase_loss_kernels(torch, timed):
     """The three vocab-streaming kernels against their plain versions, at
-    the Qwen2.5 and the Falcon-Mamba vocab; returns {name: row} at the
-    ``timed`` (dtype, N, V)."""
+    the Qwen2.5, Falcon-Mamba and RecurrentGemma vocabs; returns {name:
+    row} at the ``timed`` (dtype, N, V)."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
@@ -438,7 +484,8 @@ def phase_loss_kernels(torch, timed):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for N, VV in ((4096, V), (TRAIN_ROWS, V), (4096, SSM_VOCAB),
-                      (TRAIN_ROWS, SSM_VOCAB), (7, 259)):
+                      (TRAIN_ROWS, SSM_VOCAB), (TRAIN_ROWS, HYB_VOCAB),
+                      (7, 259)):
             x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
                                                            dt)
             e = x.element_size()
@@ -525,16 +572,32 @@ def _plain_fused_rl_loss(logits, targets, old, ref, adv, *, clip_eps=0.2):
     return tuple(o.reshape(shape) for o in outs)
 
 
+def _flat(prefix, tree):
+    """{"prefix/key/...": leaf} of a nested dict."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for key, sub in tree.items()
+            for k, v in _flat(f"{prefix}/{key}", sub).items()}
+
+
 def _watched_grads(cfg, g):
     """The gradients a route without a backward would lose: the attention
-    weights (flash), or every mamba parameter (the scan)."""
-    if cfg.arch_type != "ssm":
-        return {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
-    out = {}
-    for k, v in g["blocks"]["mamba"].items():
-        for kk, t in (v.items() if isinstance(v, dict) else [("", v)]):
-            out[f"{k}/{kk}".rstrip("/")] = t
-    return out
+    weights (flash), every mamba parameter (the selective scan), or every
+    RG-LRU parameter (its scan) and every attention weight of the hybrid's
+    first tile and remainder."""
+    if cfg.arch_type == "ssm":
+        return _flat("mamba", g["blocks"]["mamba"])
+    if cfg.arch_type == "hybrid":
+        out = {}
+        for name, blk in g["tiles"].items():      # tile 0 of each stack
+            mix = "rec" if "rec" in blk else "attn"
+            out.update({k: t[0] for k, t in _flat(f"{name}/{mix}",
+                                                  blk[mix]).items()})
+        for i, blk in enumerate(g.get("rem", [])):
+            mix = "rec" if "rec" in blk else "attn"
+            out.update(_flat(f"rem{i}/{mix}", blk[mix]))
+        return out
+    return {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
 
 
 def phase_microbatch(torch, cfg2):
@@ -605,12 +668,14 @@ def _counters(*names):
                                                    fused_rl_loss_fwd)
     from repro_torch.kernels.grpo_logprob import grpo_logprob
     from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.rglru_scan import rglru_scan
     every = {"flash_attention": flash_attention,
              "decode_attention": decode_attention,
              "grpo_logprob": grpo_logprob,
              "fused_rl_loss_fwd": fused_rl_loss_fwd,
              "fused_rl_loss_bwd": fused_rl_loss_bwd,
-             "mamba_scan": mamba_scan}
+             "mamba_scan": mamba_scan,
+             "rglru_scan": rglru_scan}
     return {n: every[n] for n in names}
 
 
@@ -733,14 +798,56 @@ def phase_mamba_scan(torch, sm_clock_hz, timed):
     return out
 
 
-def phase_ssm_serving(torch, cfg, smi):
-    """Full-width Falcon-Mamba-7B through the fixed engine, then the
-    teacher-forced check (its full forwards run ``mamba_scan``) and a
-    trace of a short serving run. Returns the launches of ``mamba_scan``
-    over serving and the check."""
+def _check_rows(cfg, rows):
+    for r in rows:
+        lp = r["logprobs"][r["prompt_len"]:]
+        if not (r["tokens"] < cfg.vocab_size).all() or \
+                not all(math.isfinite(x) and x <= 0.0 for x in lp):
+            raise AssertionError(f"{cfg.name}: bad tokens or logprobs")
+
+
+def _fixed_run32(torch, params, prompts, max_new):
+    """``run32`` for ``_teacher_forced``: the fixed engine's decode loop in
+    fp32 over an fp32 cache (the hybrid's attention layers keep one; the
+    engine keeps bf16, as the reference's). The prompts, cut to one
+    length, are fed step by step, then ``max_new`` tokens are sampled as
+    the engine samples them."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.rl.sampling import categorical, fold_seed
+    plen = min(len(p) for p in prompts)
+    toks = torch.tensor([list(p[:plen]) for p in prompts], device="cuda",
+                        dtype=torch.long)
+    B, total = len(prompts), plen + max_new
+
+    def run32(cfg32):
+        cache = init_cache(cfg32, B, total, torch.float32)
+        out, lps = [toks[:, 0]], [torch.zeros(B, device="cuda")]
+        with torch.no_grad():
+            for t in range(total - 1):
+                logits, cache = decode_step(
+                    params, cfg32, cache, out[-1],
+                    torch.full((B,), t, device="cuda"))
+                logits = logits.float() / TEMPERATURE
+                nxt = toks[:, t + 1] if t + 1 < plen else categorical(
+                    logits, [fold_seed(SEED, i, t + 1) for i in range(B)])
+                out.append(nxt)
+                lps.append(torch.log_softmax(logits, dim=-1).gather(
+                    1, nxt[:, None])[:, 0])
+        tokens = torch.stack(out, 1).cpu().numpy()
+        logprobs = torch.stack(lps, 1).cpu().numpy()
+        return [(tokens[i], logprobs[i], plen) for i in range(B)]
+    return run32
+
+
+def phase_fixed_serving(torch, cfg, smi, kernels):
+    """A full-width model served through the fixed engine (4 requests of at
+    most FIXED_PROMPT_MAX prompt tokens, FIXED_NEW new tokens each), then
+    the teacher-forced check (its full forwards run the scan kernels and,
+    for the hybrid, ``flash_attention``) and a trace of a short serving
+    run. Returns the launches of ``kernels`` over serving and the check;
+    each must have run."""
     import numpy as np
 
-    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.models import (count_params, decode_step, init_cache,
                                     init_params)
     from repro_torch.rl import generate
@@ -748,27 +855,25 @@ def phase_ssm_serving(torch, cfg, smi):
     params = init_params(SEED, cfg)
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
-          f"d_inner={cfg.d_inner} vocab={cfg.vocab_size} "
-          f"params={count_params(params)} ({cfg.param_dtype}, compute "
-          f"{cfg.compute_dtype}) init {time.monotonic() - t0:.3f}s")
-    # two short task prompts and two byte prompts cut to SSM_PROMPT_MAX
-    prompts = [p[:SSM_PROMPT_MAX] for p in make_prompts(SEED)[6:10]]
-    mamba_scan.launches = 0
+          f"vocab={cfg.vocab_size} params={count_params(params)} "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) init "
+          f"{time.monotonic() - t0:.3f}s")
+    # two short task prompts and two byte prompts cut to FIXED_PROMPT_MAX
+    prompts = [p[:FIXED_PROMPT_MAX] for p in make_prompts(SEED)[6:10]]
+    counters = _counters(*kernels)
+    for c in counters.values():
+        c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    rows = generate(params, cfg, prompts, SEED, max_new_tokens=SSM_NEW,
+    rows = generate(params, cfg, prompts, SEED, max_new_tokens=FIXED_NEW,
                     temperature=TEMPERATURE)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_new = sum(len(r["response_ids"]) for r in rows)
-    for r in rows:
-        lp = r["logprobs"][r["prompt_len"]:]
-        if not (r["tokens"] < cfg.vocab_size).all() or \
-                not all(math.isfinite(x) and x <= 0.0 for x in lp):
-            raise AssertionError(f"{cfg.name}: bad tokens or logprobs")
+    _check_rows(cfg, rows)
     # one decode step over the 4 requests, timed alone
-    cache = init_cache(cfg, len(prompts), 0)
+    cache = init_cache(cfg, len(prompts), FIXED_PROMPT_MAX + FIXED_NEW)
     tok = torch.full((len(prompts),), 3, device="cuda")
     steps = []
     with torch.no_grad():
@@ -779,7 +884,7 @@ def phase_ssm_serving(torch, cfg, smi):
             torch.cuda.synchronize()
             steps.append(time.monotonic() - t1)
     print(json.dumps({
-        "phase": "ssm_fixed_engine", "model": cfg.name, "card": smi,
+        "phase": "fixed_engine_serving", "model": cfg.name, "card": smi,
         "layers": cfg.num_layers, "requests": len(rows),
         "prompt_tokens": [r["prompt_len"] for r in rows],
         "decode_steps": len(rows[0]["tokens"]) - 1, "new_tokens": n_new,
@@ -788,22 +893,119 @@ def phase_ssm_serving(torch, cfg, smi):
         "decode_step_s": steps[3:], "peak_mem_gb": peak}))
     del cache
 
-    def run32(cfg32):
-        return _rows_seqs(generate(params, cfg32, prompts[:2], SEED,
-                                   max_new_tokens=8,
-                                   temperature=TEMPERATURE))
-    _teacher_forced(torch, params, cfg, _rows_seqs(rows), run32)
-    launches = mamba_scan.launches
-    if launches == 0:
-        raise AssertionError("the ssm forward never launched mamba_scan")
-    print(json.dumps({"phase": "ssm_serving_launches",
-                      "mamba_scan": launches}))
+    _teacher_forced(torch, params, cfg, _rows_seqs(rows),
+                    _fixed_run32(torch, params, prompts[:2], 8))
+    launches = {n: c.launches for n, c in counters.items()}
+    print(json.dumps({"phase": "fixed_serving_launches", "model": cfg.name,
+                      **launches}))
+    if min(launches.values()) == 0:
+        raise AssertionError(f"{cfg.name}: a kernel never ran in serving "
+                             f"and the teacher-forced check: {launches}")
     _traced(torch, lambda: generate(
         params, cfg, [p[:16] for p in prompts], SEED, max_new_tokens=4,
-        temperature=TEMPERATURE), "profile_ssm_serving")
+        temperature=TEMPERATURE), f"profile_fixed_serving {cfg.name}")
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_rglru_scan(torch, timed):
+    """``rglru_scan`` against its plain version in fp32, |err| <= 1e-4 +
+    1e-4 |ref|, on inputs in the model's ranges: a = u^r with u in
+    [0.9, 0.999] (lambda's init) and r a sigmoid gate, b = sqrt(1 - a^2)
+    i x. Timed beside the plain version, the C entry called alone (the
+    wrapper's Python is a fixed cost at small shapes) and the byte bound.
+    Returns the row at the ``timed`` (B, S, W)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    entry = _build.kernel("rglru_scan")
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, out = [], None
+    for B, S, W in (HYB_REF_ROWS, (1, SEQ_LEN_MAX, 4096), (3, 77, 1000),
+                    (2, 33, 4099)):
+        def randn():
+            return torch.randn((B, S, W), generator=gen, device=dev)
+        u = torch.empty(W, device=dev).uniform_(0.9, 0.999, generator=gen)
+        a = u ** torch.sigmoid(randn())
+        b = torch.sqrt(1 - a * a) * torch.sigmoid(randn()) * randn()
+        err = _check("rglru_scan", "float32", (B, S, W), rglru_scan(a, b),
+                     rglru_scan_ref(a, b))
+        sets = _copies(torch, (a, b))
+        h = torch.empty_like(a)
+        nbytes = 3 * B * S * W * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+        row = dict(kernel="rglru_scan", dtype="float32", B=B, S=S, W=W,
+                   max_abs_err=err, ms=_time_ms(torch, rglru_scan, sets, 20),
+                   entry_ms=_time_ms(torch, lambda a, b: entry(
+                       a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
+                       stream), sets, 20),
+                   plain_ms=_time_ms(torch, rglru_scan_ref, sets, 2),
+                   library_ms=None, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(row)
+        if (B, S, W) == timed:
+            out = row
+        del u, a, b, h, sets
+    for row in rows:
+        print("kernel_vs_plain", json.dumps(row))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_attention(torch, cfg):
+    """The attention kernels at RecurrentGemma-9B's shapes (16 query heads,
+    1 KV head, hd 256), bf16 and fp32. ``flash_attention`` over 4096
+    tokens with its 2048-key window, and at the 4 x 80 tokens of the
+    trainer's reference inference, with that window and with the ring
+    check's RING_WINDOW. ``decode_attention`` over a 2048-key ring, over
+    the FIXED_PROMPT_MAX + FIXED_NEW keys the 38-layer serving decodes
+    over, and over the ring check's RING_WINDOW keys; each full and
+    partly filled."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    H, KVH, hd, win = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.local_window
+    B, S = HYB_REF_ROWS[:2]
+    for dtype in ("bfloat16", "float32"):
+        for fb, fs, fw in ((1, 2 * win, win), (B, S, win),
+                           (B, S, RING_WINDOW)):
+            print("kernel_vs_plain", json.dumps(_flash_row(
+                torch, gen, dtype, fb, fs, H, KVH, hd, fw)))
+        for ring in (win, FIXED_PROMPT_MAX + FIXED_NEW, RING_WINDOW):
+            for fill in (torch.full((NUM_SLOTS,), ring, device=dev),
+                         torch.randint(1, ring + 1, (NUM_SLOTS,),
+                                       generator=gen, device=dev)):
+                print("kernel_vs_plain", json.dumps(_decode_row(
+                    torch, gen, dtype, NUM_SLOTS, ring, H, KVH, hd, fill)))
+    torch.cuda.empty_cache()
+
+
+def phase_ring_check(torch, cfg):
+    """The hybrid at full width cut to HYB_TRAIN_LAYERS layers with a
+    RING_WINDOW-key window: 4 requests of FIXED_PROMPT_MAX prompt tokens
+    and FIXED_NEW new ones through the fixed engine, so the decode ring
+    wraps, then the teacher-forced rules, whose full forwards cross the
+    flash kernel's window band."""
+    from repro_torch.models import init_params
+    from repro_torch.rl import generate
+    params = init_params(SEED, cfg)
+    prompts = [p[:FIXED_PROMPT_MAX] for p in make_prompts(SEED)[8:12]]
+    rows = generate(params, cfg, prompts, SEED, max_new_tokens=FIXED_NEW,
+                    temperature=TEMPERATURE)
+    _check_rows(cfg, rows)
+    lens = [len(r["tokens"]) for r in rows]
+    if min(lens) <= cfg.local_window:
+        raise AssertionError(f"the ring did not wrap: {lens} tokens")
+    print(json.dumps({"phase": "ring_check", "model": cfg.name,
+                      "layers": cfg.num_layers,
+                      "local_window": cfg.local_window, "tokens": lens}))
+    _teacher_forced(torch, params, cfg, _rows_seqs(rows),
+                    _fixed_run32(torch, params, prompts[:2], FIXED_NEW))
+    del params
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -964,7 +1166,7 @@ def main():
     krows["mamba_scan"] = phase_mamba_scan(torch, sm_clock_hz, SSM_REF_ROWS)
 
     # -- 12-14. Falcon-Mamba-7B served at full width --------------------------
-    phase_ssm_serving(torch, ssm, smi)
+    phase_fixed_serving(torch, ssm, smi, ("mamba_scan",))
 
     # -- 15. one GRPO micro-batch of Falcon-Mamba-7B --------------------------
     ssm4 = dataclasses.replace(ssm, num_layers=SSM_TRAIN_LAYERS)
@@ -978,8 +1180,35 @@ def main():
     launches["mamba_scan"] = ssm_launches["mamba_scan"]
     profile_actor_update(torch, trainer)
     del trainer
+    torch.cuda.empty_cache()
 
-    # -- 17. output -----------------------------------------------------------
+    # -- 17. the RG-LRU scan, and attention at hd 256, vs plain versions ------
+    hyb = get_config("recurrentgemma_9b")
+    krows["rglru_scan"] = phase_rglru_scan(torch, HYB_REF_ROWS)
+    phase_hybrid_attention(torch, hyb)
+
+    # -- 18-20. RecurrentGemma-9B served at full width ------------------------
+    phase_fixed_serving(torch, hyb, smi,
+                        ("rglru_scan", "flash_attention", "decode_attention"))
+
+    # -- 21. the decode ring wraps and the flash band is crossed --------------
+    hyb4 = dataclasses.replace(hyb, num_layers=HYB_TRAIN_LAYERS)
+    phase_ring_check(torch, dataclasses.replace(hyb4,
+                                                local_window=RING_WINDOW))
+
+    # -- 22. one GRPO micro-batch of RecurrentGemma-9B ------------------------
+    phase_microbatch(torch, hyb4)
+
+    # -- 23. the trainer on RecurrentGemma-9B ---------------------------------
+    trainer, hyb_launches = phase_trainer(
+        torch, hyb4, smi, "fixed",
+        ("rglru_scan", "flash_attention", "decode_attention", "grpo_logprob",
+         "fused_rl_loss_fwd", "fused_rl_loss_bwd"))
+    launches["rglru_scan"] = hyb_launches["rglru_scan"]
+    profile_actor_update(torch, trainer)
+    del trainer
+
+    # -- 24. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",
@@ -990,7 +1219,8 @@ def main():
             "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:145",
         "fused_rl_loss_bwd":
             "src/repro/kernels/fused_rl_loss/fused_rl_loss.py:178",
-        "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:61"}
+        "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:61",
+        "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:54"}
     files = {"fused_rl_loss_fwd": "fused_rl_loss",
              "fused_rl_loss_bwd": "fused_rl_loss"}
     kernels = []

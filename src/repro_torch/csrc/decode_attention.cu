@@ -16,12 +16,17 @@
 //    8 query heads). Each K/V row leaves device memory once for all the query
 //    heads that share it (7 for Qwen2.5-7B), and the S splits put enough
 //    blocks in flight to fill the 132 SMs (B*KVH alone is 16 at B=4, KVH=4).
-//    Each lane loads 16 bytes of a row; a group of hd*size/16 lanes holds one
-//    key, so a warp walks 32*16/(hd*size) keys per step, two steps unrolled
-//    to keep loads in flight. Every lane group keeps its own fp32 online
-//    softmax (m, l, acc); the states merge with warp shuffles, then across
-//    warps in shared memory, into one (m, l, acc) per (batch, head, split)
-//    in scratch the caller allocates.
+//    Each lane loads 16 bytes of a row, or two adjacent 16-byte vectors
+//    where a row has more than 32 of them (fp32 at hd=256); a group of
+//    up to 32 lanes holds one key, so a warp walks one key or more per
+//    step, with 32 bytes a lane in flight. Every lane group keeps its own
+//    fp32 online softmax (m, l, acc); the states merge with warp shuffles,
+//    then across warps in shared memory, into one (m, l, acc) per (batch,
+//    head, split) in scratch the caller allocates. That shared buffer
+//    (NW*GMAX*hd floats, 64 KB at hd=256) is dynamic shared memory, opted
+//    in above 48 KB with cudaFuncSetAttribute. A GQA group larger than
+//    GMAX (RecurrentGemma's 16) runs as several head groups, each reading
+//    the K/V rows once.
 //  * decode_combine: one block per (batch, head) merges its splits.
 #include "common.cuh"
 
@@ -30,7 +35,7 @@ namespace {
 
 constexpr int NW = 8;      // warps per block
 constexpr int GMAX = 8;    // query heads per block
-constexpr int UNROLL = 2;  // keys per lane group in flight
+constexpr int LANE_BYTES = 32;  // bytes of K (and of V) a lane has in flight
 
 // Merge online-softmax state (m2, l2, a2) into (m, l, a).
 template <int N>
@@ -52,12 +57,17 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                float* __restrict__ part_m, float* __restrict__ part_l,
                float* __restrict__ part_acc, int S, int H, int KVH,
                int chunk, float scale) {
-  constexpr int EPT = Vec<T>::N;   // elements per lane
-  constexpr int LPK = HD / EPT;    // lanes per key row
+  constexpr int EPT = Vec<T>::N;   // elements per 16-byte vector
+  // elements per lane: one vector, or more where a row has over 32 of them
+  constexpr int EPL = HD / 32 > EPT ? HD / 32 : EPT;
+  constexpr int VPL = EPL / EPT;   // vectors per lane
+  constexpr int LPK = HD / EPL;    // lanes per key row
   constexpr int KPW = 32 / LPK;    // keys per warp step
-  static_assert(HD % EPT == 0 && LPK <= 32 && 32 % LPK == 0, "head dim");
+  constexpr int UNROLL = LANE_BYTES / (16 * VPL);  // steps in flight
+  static_assert(HD % EPL == 0 && LPK <= 32 && 32 % LPK == 0 && UNROLL >= 1,
+                "head dim");
   __shared__ float sm_m[NW][GMAX], sm_l[NW][GMAX];
-  __shared__ __align__(16) float sm_acc[NW][GMAX][HD];
+  extern __shared__ __align__(16) float sm_acc[];   // [NW][GMAX][HD]
 
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int b = blockIdx.z;
@@ -67,21 +77,24 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   const int ng = min(GMAX, G - grp * GMAX);
   const int lo = split * chunk, hi = min(S, lo + chunk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane / LPK, e0 = (lane % LPK) * EPT;
+  const int sub = lane / LPK, e0 = (lane % LPK) * EPL;
 
-  float qf[GMAX][EPT], acc[GMAX][EPT], m[GMAX], l[GMAX];
+  float qf[GMAX][EPL], acc[GMAX][EPL], m[GMAX], l[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < ng) {
-      to_float<T>(ld16(q + ((size_t)b * H + h0 + g) * HD + e0), qf[g]);
+#pragma unroll
+      for (int c = 0; c < VPL; ++c)
+        to_float<T>(ld16(q + ((size_t)b * H + h0 + g) * HD + e0 + c * EPT),
+                    qf[g] + c * EPT);
     } else {
 #pragma unroll
-      for (int e = 0; e < EPT; ++e) qf[g][e] = 0.f;
+      for (int e = 0; e < EPL; ++e) qf[g][e] = 0.f;
     }
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
   const size_t row = (size_t)KVH * HD;   // elements from one key to the next
@@ -92,32 +105,37 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 
   // base is uniform across the warp, so every lane reaches the shuffles.
   for (int base = lo + warp * KPW; base < hi; base += step * UNROLL) {
-    uint4 kr[UNROLL], vr[UNROLL];
+    uint4 kr[UNROLL][VPL], vr[UNROLL][VPL];
     bool in[UNROLL], ok[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * step + sub;
       in[u] = j < hi;
-      if (in[u]) {
-        kr[u] = ld16(kb + (size_t)j * row);
-        vr[u] = ld16(vb + (size_t)j * row);
-        ok[u] = ok_row[j] != 0;
-      } else {
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        ok[u] = false;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) {
+        if (in[u]) {
+          kr[u][c] = ld16(kb + (size_t)j * row + c * EPT);
+          vr[u][c] = ld16(vb + (size_t)j * row + c * EPT);
+        } else {
+          kr[u][c] = vr[u][c] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
+      ok[u] = in[u] && ok_row[j] != 0;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      float kf[EPT], vf[EPT];
-      to_float<T>(kr[u], kf);
-      to_float<T>(vr[u], vf);
+      float kf[EPL], vf[EPL];
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) {
+        to_float<T>(kr[u][c], kf + c * EPT);
+        to_float<T>(vr[u][c], vf + c * EPT);
+      }
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g >= ng) break;                 // uniform across the block
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPT; ++e) s = fmaf(qf[g][e], kf[e], s);
+        for (int e = 0; e < EPL; ++e) s = fmaf(qf[g][e], kf[e], s);
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -128,7 +146,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
           const float p = __expf(s - m_new);
           l[g] = l[g] * alpha + p;
 #pragma unroll
-          for (int e = 0; e < EPT; ++e)
+          for (int e = 0; e < EPL; ++e)
             acc[g][e] = fmaf(p, vf[e], acc[g][e] * alpha);
           m[g] = m_new;
         }
@@ -142,9 +160,9 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g >= ng) break;
-      float ao[EPT];
+      float ao[EPL];
 #pragma unroll
-      for (int e = 0; e < EPT; ++e)
+      for (int e = 0; e < EPL; ++e)
         ao[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
       const float lw = __shfl_xor_sync(0xffffffffu, l[g], off);
@@ -160,7 +178,8 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < EPT; ++e) sm_acc[warp][g][e0 + e] = acc[g][e];
+      for (int e = 0; e < EPL; ++e)
+        sm_acc[(warp * GMAX + g) * HD + e0 + e] = acc[g][e];
     }
   }
   __syncthreads();
@@ -176,7 +195,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < NW; ++w) {
       const float c = __expf(sm_m[w][g] - mx);
       lsum += sm_l[w][g] * c;
-      a += sm_acc[w][g][d] * c;
+      a += sm_acc[(w * GMAX + g) * HD + d] * c;
     }
     const size_t p = ((size_t)b * H + h0 + g) * nsplit + split;
     part_acc[p * HD + d] = a;
@@ -209,18 +228,25 @@ decode_combine(const float* __restrict__ part_m,
 }
 
 template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, const void* valid,
-            float* pm, float* pl, float* pacc, void* out, int B, int S,
-            int H, int KVH, int nsplit, int chunk, float scale,
-            cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* valid,
+           float* pm, float* pl, float* pacc, void* out, int B, int S,
+           int H, int KVH, int nsplit, int chunk, float scale,
+           cudaStream_t st) {
+  constexpr int bytes = NW * GMAX * HD * 4;
+  // above 48 KB a block may use dynamic shared memory only after this call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_partial<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return (int)attr;
   const int ngroups = (H / KVH + GMAX - 1) / GMAX;
   const dim3 grid(nsplit, KVH * ngroups, B);
-  decode_partial<T, HD><<<grid, NW * 32, 0, st>>>(
+  decode_partial<T, HD><<<grid, NW * 32, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), pm, pl,
       pacc, S, H, KVH, chunk, scale);
   decode_combine<T, HD><<<B * H, HD, 0, st>>>(pm, pl, pacc,
                                               static_cast<T*>(out), nsplit);
+  return 0;
 }
 
 template <typename T>
@@ -229,12 +255,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* valid,
              int H, int KVH, int hd, int nsplit, int chunk, float scale,
              cudaStream_t st) {
   switch (hd) {
-    case 32: launch<T, 32>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st); break;
-    case 64: launch<T, 64>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st); break;
-    case 128: launch<T, 128>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st); break;
+    case 32: return launch<T, 32>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st);
+    case 64: return launch<T, 64>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st);
+    case 128: return launch<T, 128>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st);
+    case 256: return launch<T, 256>(q, k, v, valid, pm, pl, pacc, out, B, S, H, KVH, nsplit, chunk, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace

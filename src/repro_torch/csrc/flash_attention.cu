@@ -19,8 +19,10 @@
 // 32 output columns for PV. Tiles wholly above the diagonal or below the
 // window band are skipped: every row keeps its own key, so its running max
 // is a real score by then and skipped keys would have weighed exactly 0.
-// Ragged tails of Sq and Sk are masked in place. The next step is mma/wgmma
-// on bf16 tiles: the FP32 CUDA cores here cap it far below the tensor rate.
+// Ragged tails of Sq and Sk are masked in place. At hd=256 (RecurrentGemma's
+// local attention) the tiles take 140,800 bytes of shared memory, so one
+// block runs per SM. The next step is mma/wgmma on bf16 tiles: the FP32
+// CUDA cores here cap it far below the tensor rate.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -209,6 +211,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
+    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,4 +11,5 @@ current stream, counts launches). ``_build.py`` compiles the sources with
   grpo_logprob     — token log-prob and entropy over (N, V) logits
   fused_rl_loss    — the fused actor loss, forward and backward
   mamba_scan       — the Mamba-1 selective scan (ssm family)
+  rglru_scan       — the RG-LRU linear recurrence (hybrid family)
 """

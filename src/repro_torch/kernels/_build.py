@@ -55,6 +55,9 @@ SIGNATURES = {
         # batch and time strides (elements), stream
         "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                        _L, _P]},
+    "rglru_scan": {
+        # a, b, h, B, S, W, stream
+        "rglru_scan": [_P, _P, _P, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -161,7 +164,7 @@ def check(name: str, err: int) -> None:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def aligned(t):

@@ -4,8 +4,8 @@
     logits, aux = forward(params, cfg, batch)              # train/prefill
     logits, cache = decode_step(params, cfg, cache, token, pos)
 
-``batch`` is a dict holding tokens (B,S). The dense and ssm families are
-ported; the others raise ``NotImplementedError``.
+``batch`` is a dict holding tokens (B,S). The dense, ssm and hybrid
+families are ported; the others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.tree import tree_leaves
 
 
 def init_params(seed: int, cfg, *, device=None):
@@ -33,9 +34,10 @@ def forward(params, cfg, batch, *, window=0, use_kernels=True,
 
     ``use_kernels`` chooses the route, as the reference's ``use_pallas``
     does: True (serving, prefill, reference inference) takes the
-    forward-only kernels, ``kernels/flash_attention`` for causal attention
-    and ``kernels/mamba_scan`` for the ssm scan; False (the actor update)
-    takes the plain, differentiable ``sdpa`` and scan."""
+    forward-only kernels, ``kernels/flash_attention`` for causal attention,
+    ``kernels/mamba_scan`` for the ssm scan and ``kernels/rglru_scan`` for
+    the RG-LRU; False (the actor update) takes the plain, differentiable
+    ``sdpa`` and scans."""
     logits, aux, cache = transformer.forward_lm(
         params, cfg, batch["tokens"], window=window,
         return_cache=return_cache, use_kernels=use_kernels)
@@ -57,6 +59,4 @@ def decode_step(params, cfg, cache, token, pos, *, ring=False):
 
 
 def count_params(params) -> int:
-    if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
-    return int(params.numel())
+    return sum(int(t.numel()) for t in tree_leaves(params))

@@ -1,20 +1,28 @@
-"""Decoder-only LM assembly — the dense and ssm families.
+"""Decoder-only LM assembly — the dense, ssm and hybrid families.
 
 Layer stacks keep the reference's layout: one tree of tensors with a
 leading layer axis (``params["blocks"]["attn"]["wq"]["w"]`` is
 ``(L, d, H*hd)``; an ssm block is ``{"ln", "mamba": {...}}``), walked here
-by a Python loop where the reference used ``jax.lax.scan``.
+by a Python loop where the reference used ``jax.lax.scan``. The hybrid
+(Griffin) family stacks whole (recurrent, recurrent, attention) tiles:
+``params["tiles"]["{i}_{kind}"]`` has a leading tile axis, and the layers
+left over after the last whole tile are a list, ``params["rem"]``. Its
+attention blocks are local (``cfg.local_window``) and decode over a ring
+cache.
 ``forward_lm`` returns ``(logits, aux, cache_or_None)`` with aux 0 (no MoE
 yet).
 
-The moe, hybrid and vlm families, and MLA attention, are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+The moe and vlm families, and MLA attention, are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
                                        init_embedding, init_mlp, init_norm,
@@ -22,13 +30,13 @@ from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
 
 
 def _require_ported(cfg):
-    if not (cfg.arch_type == "ssm"
+    if not (cfg.arch_type in ("ssm", "hybrid")
             or (cfg.arch_type == "dense" and cfg.attention == "gqa")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP §1, item 12, "
-            "'the other model families'); the port runs dense GQA and ssm "
-            "models")
+            "'the other model families'); the port runs dense GQA, ssm and "
+            "hybrid models")
 
 
 def _layer(tree, i):
@@ -43,10 +51,25 @@ def _layer(tree, i):
 # ---------------------------------------------------------------------------
 
 
+def _init_block(gen, cfg, kind, layers):
+    """An attention block ({"ln1", "attn", "ln2", "ffn"}) or a recurrent
+    one ({"ln1", "rec", "ln2", "ffn"}), stacked over ``layers``."""
+    dt, dev = dtype_of(cfg.param_dtype), gen.device
+    mix = (rglru_mod.init_rglru_block(gen, cfg, dt, layers=layers)
+           if kind == "recurrent"
+           else attn.init_attention(gen, cfg, dt, layers=layers))
+    return {"ln1": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=layers),
+            "rec" if kind == "recurrent" else "attn": mix,
+            "ln2": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=layers),
+            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
+                            layers=layers)}
+
+
 def init_lm(gen, cfg):
-    """Parameters of a dense or ssm decoder, drawn on ``gen``'s device at
-    the reference's init scales (normal 0.02, zero biases, unit norm
-    scales; the mamba block's own, ``models/ssm.py``)."""
+    """Parameters of a dense, ssm or hybrid decoder, drawn on ``gen``'s
+    device at the reference's init scales (normal 0.02, zero biases, unit
+    norm scales; the mamba and RG-LRU blocks' own, ``models/ssm.py`` and
+    ``models/rglru.py``)."""
     _require_ported(cfg)
     dt, dev = dtype_of(cfg.param_dtype), gen.device
     L = (cfg.num_layers,)
@@ -59,15 +82,54 @@ def init_lm(gen, cfg):
         params["blocks"] = {
             "ln": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=L),
             "mamba": ssm_mod.init_mamba(gen, cfg, dt, layers=L)}
-        return params
-    params["blocks"] = {
-        "ln1": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=L),
-        "attn": attn.init_attention(gen, cfg, dt, layers=L),
-        "ln2": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=L),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
-                        layers=L),
-    }
+    elif cfg.arch_type == "hybrid":
+        layout = _hybrid_layout(cfg)
+        n_tiles = sum(1 for layer in layout if layer.i == 0
+                      and layer.tile is not None)
+        if n_tiles:
+            params["tiles"] = {f"{layer.i}_{layer.kind}": _init_block(
+                gen, cfg, layer.kind, (n_tiles,))
+                for layer in layout if layer.tile == 0}
+        rem = [layer.kind for layer in layout if layer.tile is None]
+        if rem:
+            params["rem"] = [_init_block(gen, cfg, kind, ()) for kind in rem]
+    else:
+        params["blocks"] = _init_block(gen, cfg, "attention", L)
     return params
+
+
+class HybridLayer(NamedTuple):
+    kind: str            # "recurrent" or "attention"
+    tile: Optional[int]  # its tile, or None for a remainder layer
+    i: int               # its place in the pattern (and in ``rem``)
+    j: int               # its index among the layers of its kind (cache)
+
+
+def _hybrid_layout(cfg):
+    """The hybrid's layers in order, as in the reference: whole tiles of
+    ``cfg.rglru_block_pattern``, then the pattern's first
+    ``num_layers % len(pattern)`` kinds as remainder layers."""
+    pat = cfg.rglru_block_pattern
+    n_tiles, rem = divmod(cfg.num_layers, len(pat))
+    places = [(t, i) for t in range(n_tiles) for i in range(len(pat))]
+    places += [(None, i) for i in range(rem)]
+    seen = {"recurrent": 0, "attention": 0}
+    layout = []
+    for t, i in places:
+        layout.append(HybridLayer(pat[i], t, i, seen[pat[i]]))
+        seen[pat[i]] += 1
+    return layout
+
+
+def _hybrid_layers(params, cfg):
+    """(layout entry, block params) of each hybrid layer in order; tile
+    layers are views into the stacked tree."""
+    for layer in _hybrid_layout(cfg):
+        if layer.tile is None:
+            yield layer, params["rem"][layer.i]
+        else:
+            yield layer, _layer(
+                params["tiles"][f"{layer.i}_{layer.kind}"], layer.tile)
 
 
 # ---------------------------------------------------------------------------
@@ -84,13 +146,22 @@ def _attn_block_full(p, x, cfg, *, window, positions, use_kernels):
     return x + mlp(p["ffn"], h, cfg.activation, x.dtype), k, v
 
 
+def _rec_block_full(p, x, cfg, *, use_kernels):
+    x = x + rglru_mod.rglru_full(p["rec"], norm(p["ln1"], x), cfg,
+                                 use_kernels=use_kernels)
+    return x + mlp(p["ffn"], norm(p["ln2"], x), cfg.activation, x.dtype)
+
+
 def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
                positions=None, use_kernels=True):
     """tokens: (B, S) int. Returns (logits (B, S, V), aux, cache_or_None);
     the cache is {"kv": {"k", "v"}} of (L, B, S, KVH, hd). use_kernels=False
     takes the plain, differentiable attention and scan routes (training).
     The ssm family builds no prefill cache, as in the reference: its decode
-    state comes from stepping through the prompt."""
+    state comes from stepping through the prompt. The hybrid's attention
+    runs at ``cfg.local_window`` whatever ``window`` is, and its cache is
+    the reference's {"att_kv": {"k", "v"}} of the tiles' attention layers
+    (None without a whole tile)."""
     _require_ported(cfg)
     if return_cache and cfg.arch_type == "ssm":
         raise ValueError(f"{cfg.name}: the ssm family has no prefill cache; "
@@ -102,19 +173,31 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        if cfg.arch_type == "ssm":
+    if cfg.arch_type == "hybrid":
+        for layer, p in _hybrid_layers(params, cfg):
+            if layer.kind == "recurrent":
+                x = _rec_block_full(p, x, cfg, use_kernels=use_kernels)
+                continue
+            x, k, v = _attn_block_full(p, x, cfg, window=cfg.local_window,
+                                       positions=positions,
+                                       use_kernels=use_kernels)
+            if return_cache and layer.tile is not None:
+                ks.append(k)
+                vs.append(v)
+    elif cfg.arch_type == "ssm":
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
             x = x + ssm_mod.mamba_full(p["mamba"], norm(p["ln"], x), cfg,
                                        use_kernels=use_kernels,
                                        chunk=cfg.ssm_chunk)
-            continue
-        x, k, v = _attn_block_full(p, x, cfg, window=window,
-                                   positions=positions,
-                                   use_kernels=use_kernels)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
+    else:
+        for i in range(cfg.num_layers):
+            x, k, v = _attn_block_full(_layer(params["blocks"], i), x, cfg,
+                                       window=window, positions=positions,
+                                       use_kernels=use_kernels)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
 
     x = norm(params["final_norm"], x)
     if cfg.tie_embeddings:
@@ -123,7 +206,8 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
         logits = dense(params["lm_head"], x, cd)
     cache = None
     if return_cache:
-        cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+        cache = {"att_kv" if cfg.arch_type == "hybrid" else "kv": kv}
     return logits, 0.0, cache
 
 
@@ -134,11 +218,23 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
 
 def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
     """Cache tensors for decode shapes; ``length`` = KV window kept. The
-    ssm state has no sequence axis and stays fp32 whatever ``dtype``, as
-    in the reference."""
+    ssm and RG-LRU states have no sequence axis and stay fp32 whatever
+    ``dtype``, as in the reference. The hybrid keeps {"rec": its recurrent
+    layers' states, "att": a ring of min(length, cfg.local_window) keys
+    per attention layer}."""
     _require_ported(cfg)
     if cfg.arch_type == "ssm":
         return ssm_mod.init_mamba_cache(cfg, batch, device=device)
+    if cfg.arch_type == "hybrid":
+        kinds = [layer.kind for layer in _hybrid_layout(cfg)]
+        n_att = kinds.count("attention")
+        return {"rec": rglru_mod.init_rglru_cache(cfg, batch,
+                                                  len(kinds) - n_att,
+                                                  device=device),
+                "att": attn.init_kv_cache(cfg, batch,
+                                          min(length, cfg.local_window),
+                                          dtype, layers=n_att,
+                                          device=device)}
     return attn.init_kv_cache(cfg, batch, length, dtype, device=device)
 
 
@@ -148,19 +244,33 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False):
     _require_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], token[:, None], cd)  # (B,1,d)
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        if cfg.arch_type == "ssm":
+    if cfg.arch_type == "hybrid":
+        for layer, p in _hybrid_layers(params, cfg):
+            if layer.kind == "recurrent":
+                y, _ = rglru_mod.rglru_decode(
+                    p["rec"], norm(p["ln1"], x),
+                    _layer(cache["rec"], layer.j), cfg)
+            else:       # the reference's hybrid decode always rings
+                y, _ = attn.attend_decode(
+                    p["attn"], norm(p["ln1"], x),
+                    _layer(cache["att"], layer.j), pos, cfg, ring=True)
+            x = x + y
+            x = x + mlp(p["ffn"], norm(p["ln2"], x), cfg.activation, cd)
+    elif cfg.arch_type == "ssm":
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
             y, _ = ssm_mod.mamba_decode(p["mamba"], norm(p["ln"], x),
                                         _layer(cache, i), cfg)
             x = x + y
-            continue
-        h = norm(p["ln1"], x)
-        y, _ = attn.attend_decode(p["attn"], h, _layer(cache, i), pos, cfg,
-                                  ring=ring)
-        x = x + y
-        h = norm(p["ln2"], x)
-        x = x + mlp(p["ffn"], h, cfg.activation, x.dtype)
+    else:
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
+            h = norm(p["ln1"], x)
+            y, _ = attn.attend_decode(p["attn"], h, _layer(cache, i), pos,
+                                      cfg, ring=ring)
+            x = x + y
+            h = norm(p["ln2"], x)
+            x = x + mlp(p["ffn"], h, cfg.activation, x.dtype)
 
     x = norm(params["final_norm"], x)
     if cfg.tie_embeddings:

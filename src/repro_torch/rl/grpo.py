@@ -76,8 +76,8 @@ def grpo_grad_step(params, cfg, rl: GRPOConfig, batch):
     in ``params`` (which rollout workers may be sampling with) are neither
     marked as requiring grad nor given a ``.grad``; grad mode is switched
     on here because the caller's thread may have it off. Every parameter
-    of a dense or ssm model reaches the loss, so one that autograd did not
-    reach (a route that recorded no graph) raises."""
+    of a dense, ssm or hybrid model reaches the loss, so one that autograd
+    did not reach (a route that recorded no graph) raises."""
     live = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = grpo_loss_fn(tree_unflatten(params, live), cfg,

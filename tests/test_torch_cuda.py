@@ -27,6 +27,8 @@ from repro_torch.kernels.fused_rl_loss import (fused_rl_loss,
 from repro_torch.kernels.grpo_logprob import grpo_logprob, grpo_logprob_ref
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
                                             scan_from)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.tree import tree_map
 
 # fp32: summation order differs on the card; bf16: one rounding of the output
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -49,7 +51,8 @@ def _randn(gen, shape, dtype, device):
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (1, 128, 4, 4, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 32),
-    (2, 128, 4, 4, 128), (2, 100, 4, 2, 64), (4, 1000, 28, 4, 128)])
+    (2, 128, 4, 4, 128), (2, 100, 4, 2, 64), (4, 1000, 28, 4, 128),
+    (1, 300, 16, 1, 256), (2, 130, 16, 1, 256)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("window", [0, 64])
 def test_flash_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype,
@@ -69,7 +72,8 @@ def test_flash_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype,
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (2, 1024, 4, 2, 64), (1, 2048, 8, 8, 32), (3, 512, 4, 1, 128),
-    (3, 100, 4, 2, 64), (4, 4099, 28, 4, 128), (2, 5, 16, 1, 64)])
+    (3, 100, 4, 2, 64), (4, 4099, 28, 4, 128), (2, 5, 16, 1, 64),
+    (4, 2048, 16, 1, 256), (3, 77, 16, 1, 256)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -84,6 +88,21 @@ def test_decode_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     out = decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
     assert decode_attention.launches == n + 1
+    ref = decode_attention_ref(q, k, v, valid)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_on_a_full_ring_at_hd256(cuda_device, dtype):
+    """RecurrentGemma's decode: 16 query heads on 1 KV head, hd 256, every
+    key of a 2048-key ring valid."""
+    gen = torch.Generator(device=cuda_device).manual_seed(256)
+    q = _randn(gen, (4, 1, 16, 256), dtype, cuda_device)
+    k = _randn(gen, (4, 2048, 1, 256), dtype, cuda_device)
+    v = _randn(gen, (4, 2048, 1, 256), dtype, cuda_device)
+    valid = torch.ones((4, 2048), dtype=torch.bool, device=cuda_device)
+    out = decode_attention(q, k, v, valid)
     ref = decode_attention_ref(q, k, v, valid)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
@@ -104,9 +123,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
 
 
 def _to_cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.cpu()
+    return tree_map(lambda t: t.cpu(), tree)
 
 
 def test_engine_on_card_matches_cpu_forward(cuda_device):
@@ -142,11 +159,12 @@ def test_engine_on_card_matches_cpu_forward(cuda_device):
 
 
 # The vocab-streaming kernels at the trainer's shapes: a micro-batch of
-# 4 rows x 79 tokens, 4096 rows, full Qwen2.5 vocab and full Falcon-Mamba
-# vocab (65,024); V=259 (byte vocab: bf16 rows start at 518-byte offsets,
-# off the 16-byte grid) and 2053.
+# 4 rows x 79 tokens, 4096 rows, full Qwen2.5 vocab, full Falcon-Mamba
+# vocab (65,024) and full RecurrentGemma vocab (256,000); V=259 (byte
+# vocab: bf16 rows start at 518-byte offsets, off the 16-byte grid) and
+# 2053.
 VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
-                (316, 65024), (4096, 65024)]
+                (316, 65024), (4096, 65024), (316, 256000)]
 
 
 def _loss_inputs(gen, N, V, dtype, device):
@@ -259,9 +277,7 @@ def test_grpo_grads_on_card_match_cpu(cuda_device):
 
 
 def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def test_trainer_on_card_launches_every_kernel(cuda_device):
@@ -371,6 +387,105 @@ def test_ssm_forward_and_decode_on_card_match_cpu(cuda_device):
                                     torch.full((2,), t, device=cuda_device))
             steps.append(lg)
     assert mamba_scan.launches == n + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(torch.stack(steps, 1).cpu(), want,
+                               atol=1e-4, rtol=1e-4)
+
+
+def _rglru_inputs(gen, B, S, W, a_max, device):
+    """a = u^r with u in [0.9, a_max] (lambda's init) and r a sigmoid gate;
+    b = sqrt(1 - a^2) i x, as the model hands them over."""
+    u = 0.9 + (a_max - 0.9) * torch.rand(W, generator=gen, device=device)
+    a = u ** torch.sigmoid(_randn(gen, (B, S, W), torch.float32, device))
+    b = torch.sqrt(1 - a * a) * torch.sigmoid(
+        _randn(gen, (B, S, W), torch.float32, device)) \
+        * _randn(gen, (B, S, W), torch.float32, device)
+    return a, b
+
+
+@pytest.mark.parametrize("B,S,W", [(4, 80, 4096), (1, 2048, 4096),
+                                   (3, 77, 1000), (2, 33, 4099),
+                                   (1, 1, 5)])
+def test_rglru_scan_kernel_matches_plain(cuda_device, B, S, W):
+    """fp32 at the model's ranges, |err| <= 1e-4 + 1e-4 |ref| (the kernel
+    rounds a*h + b once, the plain version twice); ragged S and W."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + W)
+    a, b = _rglru_inputs(gen, B, S, W, 0.999, cuda_device)
+    n = rglru_scan.launches
+    h = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == n + 1
+    assert h.dtype == torch.float32 and h.shape == (B, S, W)
+    _assert_close_rel(h, rglru_scan_ref(a, b), 1e-4)
+    # bf16 inputs are cast to fp32, as the Pallas wrapper casts them
+    _assert_close_rel(rglru_scan(a, b.bfloat16()),
+                      rglru_scan_ref(a, b.bfloat16()), 1e-4)
+
+
+@pytest.mark.parametrize("dist", ["model", "reference"])
+def test_rglru_scan_kernel_is_as_close_to_fp64_as_plain(cuda_device, dist):
+    """At the long prefill, against the recurrence in float64: the kernel's
+    largest error is within twice the plain fp32 version's (plus 1e-6),
+    with a up to 0.999, where a step's rounding is carried with a gain up
+    to 1/(1-a), and with the reference test's a ~ U[0.4, 0.999], b
+    normal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    if dist == "model":
+        a, b = _rglru_inputs(gen, 1, 2048, 4096, 0.999, cuda_device)
+    else:
+        a = 0.4 + 0.599 * torch.rand((1, 2048, 4096), generator=gen,
+                                     device=cuda_device)
+        b = _randn(gen, (1, 2048, 4096), torch.float32, cuda_device)
+    truth = torch.empty_like(a, dtype=torch.float64)
+    h = torch.zeros_like(a[:, 0], dtype=torch.float64)
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + b[:, t].double()
+        truth[:, t] = h
+    with torch.no_grad():
+        err_k = (rglru_scan(a, b).double() - truth).abs().max().item()
+    err_p = (rglru_scan_ref(a, b).double() - truth).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+def test_rglru_scan_raises_under_grad_on_card(cuda_device):
+    a = torch.zeros((1, 4, 8), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rglru_scan(a, a)
+    with torch.no_grad():
+        assert rglru_scan(a, a).shape == a.shape
+
+
+def test_hybrid_forward_and_decode_on_card_match_cpu(cuda_device):
+    """A reduced RecurrentGemma on the card, fp32, 4 layers (a tile and a
+    remainder layer) with an 8-key window over 21 tokens: the full forward
+    (``rglru_scan`` and ``flash_attention``) and step-by-step decode over
+    a ring that wraps (``decode_attention``, an fp32 cache) against a CPU
+    forward over the same weights."""
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32", num_layers=4,
+                              local_window=8)
+    params = init_params(0, cfg, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 259, (2, 21)))
+    n = rglru_scan.launches, flash_attention.launches
+    nd = decode_attention.launches
+    with torch.no_grad():
+        got, _ = forward(params, cfg, {"tokens": toks.to(cuda_device)})
+        want, _ = forward(_to_cpu(params), cfg, {"tokens": toks})
+        cache = init_cache(cfg, 2, 21, dtype=torch.float32,
+                           device=cuda_device)
+        steps = []
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, t].to(cuda_device),
+                                    torch.full((2,), t, device=cuda_device))
+            steps.append(lg)
+    assert (rglru_scan.launches, flash_attention.launches) == (n[0] + 3,
+                                                               n[1] + 1)
+    assert decode_attention.launches == nd + 21
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(torch.stack(steps, 1).cpu(), want,
                                atol=1e-4, rtol=1e-4)

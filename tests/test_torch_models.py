@@ -123,7 +123,7 @@ def test_init_params_matches_reference_tree_and_scales():
     assert torch.equal(again["embed"]["table"], params["embed"]["table"])
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "grok_1_314b",
+@pytest.mark.parametrize("arch", ["internvl2_26b", "grok_1_314b",
                                   "minicpm3_4b", "whisper_tiny"])
 def test_unported_families_raise(arch):
     from repro_torch.configs import get_config as port_get_config
