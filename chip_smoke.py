@@ -8,11 +8,15 @@ imports nothing of JAX or of the JAX package ``src/repro``. Phases, each of
 which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built
-   from ``src/repro_torch/csrc`` (build seconds printed);
+   from ``src/repro_torch/csrc`` (build seconds printed), and the flash
+   kernels' registers, spills and HGMMA/FFMA counts from the ptxas log
+   and the SASS (the bf16 route must run on HGMMA);
 2. each attention kernel against its plain PyTorch version at the serving
    path's shapes, in bf16 and fp32, with its time beside the plain
    version's, ``F.scaled_dot_product_attention``'s (timed as a yardstick
-   only; the port never calls it) and the card's bound;
+   only; the port never calls it: with the band as its mask, and for
+   flash without a window also with ``is_causal``), ``decode_attention``'s
+   C entry alone, and the card's bound;
 3. the continuous-batching engine serving full-width Qwen2.5-7B (all 28
    layers, vocab 152,064, random weights from a seed): 16 requests,
    4 slots, 32 new tokens each; the launch counts of both kernels over
@@ -67,7 +71,7 @@ which raises on failure:
     trainer's 4 x 80 tokens at windows 2048 and 32) and
     ``decode_attention`` (rings of 2048, 80 and 32 keys, full and partly
     filled) at RecurrentGemma-9B's 16 query heads, 1 KV head and hd 256,
-    bf16 and fp32, beside SDPA;
+    bf16 and fp32, beside SDPA (and decode's C entry alone);
 18. full-width RecurrentGemma-9B (all 38 layers, vocab 256,000, random
     weights from a seed) served through the fixed engine, as in phase 12;
 19. the teacher-forced rules for it (full forwards through ``rglru_scan``
@@ -195,12 +199,15 @@ def _check(name, dtype, shape, out, ref):
 
 def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
     """``decode_attention`` against its plain version on random q, K, V
-    with ``fill`` (B,) valid keys a row, timed beside the plain version,
-    SDPA and the bound; returns the row."""
+    with ``fill`` (B,) valid keys a row, timed beside its C entry alone
+    (split and scratch made once, as the wrapper makes them each call),
+    the plain version, SDPA and the bound; returns the row."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import _splits
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                for shape in ((B, 1, H, hd), (B, S, KVH, hd),
@@ -212,10 +219,23 @@ def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
     sets = _copies(torch, (q, k, v, valid))
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid, q))
     bound, by = _bound(nbytes, 4 * B * H * S * hd, dtype)
+    nsplit, chunk = _splits(dev, B, S, H, KVH)
+    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty_like(q)
+    entry = _build.kernel("decode_attention")
+    stream = torch.cuda.current_stream().cuda_stream
     return dict(
         kernel="decode_attention", dtype=dtype, B=B, S=S, H=H, KVH=KVH,
         hd=hd, filled=fill.tolist(), max_abs_err=err,
         ms=_time_ms(torch, decode_attention, sets, 50),
+        entry_ms=_time_ms(torch, lambda q, k, v, m: entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), B, S, H, KVH, hd, nsplit, chunk,
+            _build.DTYPE_CODES[dt], stream), sets, 50),
         plain_ms=_time_ms(torch, decode_attention_ref, sets, 10),
         library_ms=_time_ms(
             torch, lambda q, k, v, m: F.scaled_dot_product_attention(
@@ -226,11 +246,14 @@ def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
 
 def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
     """``flash_attention`` against its plain version on random q, K, V,
-    timed beside the plain version, SDPA with the band as its mask and the
-    bound (operations over the (query, visible key) pairs); returns the
-    row."""
+    timed beside its C entry alone, the plain version, SDPA with the band
+    as its mask and, without a window, SDPA with ``is_causal`` (the
+    stronger yardstick; both timed only, the port never calls SDPA), and
+    the bound (operations over the (query, visible key) pairs); returns
+    the row."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
@@ -250,18 +273,74 @@ def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
     nbytes = 2 * q.numel() * q.element_size() \
         + 2 * k.numel() * k.element_size()
     bound, by = _bound(nbytes, 4 * B * H * hd * pairs, dtype)
+
+    def sdpa(**kw):
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True, **kw)
+    entry = _build.kernel("flash_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(q)
     return dict(
         kernel="flash_attention", dtype=dtype, B=B, S=S, H=H, KVH=KVH,
         hd=hd, window=window, max_abs_err=err,
         ms=_time_ms(torch, lambda q, k, v: flash_attention(
             q, k, v, window=window), sets, 10),
+        entry_ms=_time_ms(torch, lambda q, k, v: entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            S, H, KVH, hd, window, _build.DTYPE_CODES[dt], stream), sets, 10),
         plain_ms=_time_ms(torch, lambda q, k, v: flash_attention_ref(
             q, k, v, window=window), sets, 3),
-        library_ms=_time_ms(
-            torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=band, enable_gqa=True), sets, 10),
+        library_ms=_time_ms(torch, sdpa(attn_mask=band), sets, 10),
+        library_causal_ms=None if window > 0 else _time_ms(
+            torch, sdpa(is_causal=True), sets, 10),
         bound_ms=bound, bound_by=by)
+
+
+def flash_build_report():
+    """The flash kernels' registers, spills and wgmma serialization notes
+    per instantiation, from the ptxas log of this run's build, and their
+    tensor-core (HGMMA) and FP32-core (FFMA) instructions from the SASS;
+    raises unless every bf16 instantiation runs on HGMMA."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    def instance(mangled):
+        route = "bf16_wgmma" if "flash_wgmma" in mangled else "fp32"
+        return route + "_hd" + re.search(r"Li(\d+)E", mangled).group(1)
+    log = (_build.BUILD_DIR / "flash_attention.log").read_text().splitlines()
+    report = {}
+    for i, line in enumerate(log):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if not m:
+            continue
+        mangled = m.group(1)
+        nums = {}
+        for follow in log[i + 1:i + 4]:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                hit = re.search(pat, follow)
+                if hit:
+                    nums[key] = int(hit.group(1))
+        nums["serialized"] = any("serialized" in x and mangled in x
+                                 for x in log)
+        report[instance(mangled)] = nums
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(
+        "flash_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        report.setdefault(instance(part.split()[0]), {}).update(
+            hgmma=part.count("HGMMA"), ffma=len(re.findall(r"\bFFMA\b",
+                                                            part)))
+    missing = [n for n, r in report.items()
+               if n.startswith("bf16") and not r.get("hgmma")]
+    if missing or not any(n.startswith("bf16") for n in report):
+        raise AssertionError(f"bf16 flash_attention without HGMMA: {report}")
+    return report
 
 
 def phase_kernels(torch, max_len, timed):
@@ -402,7 +481,9 @@ def _traced(torch, fn, phase):
                       "kernel_names": len(events),
                       "device_busy_us": busy_us,
                       "device_idle_share": 1 - busy_us / wall_us}))
-    for e in events[:15]:
+    # the 15 longest, and every kernel of the port's own
+    for e in [e for i, e in enumerate(events)
+              if i < 15 or "repro_torch" in e.key]:
         print("profile_kernel", json.dumps({
             "name": e.key[:90], "calls": e.count,
             "device_us": e.self_device_time_total,
@@ -1035,6 +1116,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     _build.build_all()
     print(f"kernel build seconds {_build.build_seconds:.3f}")
+    print("flash_build", json.dumps(flash_build_report()))
 
     cfg = get_config("qwen2_5_7b")
     prompts = make_prompts(SEED)

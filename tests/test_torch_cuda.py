@@ -49,18 +49,36 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [
-    (1, 128, 4, 4, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 32),
-    (2, 128, 4, 4, 128), (2, 100, 4, 2, 64), (4, 1000, 28, 4, 128),
-    (1, 300, 16, 1, 256), (2, 130, 16, 1, 256)])
+# (B, Sq, Sk, H, KV, hd). The first eight are the serving and hybrid shapes;
+# then the bf16 kernel's tile edges (128-row Q tiles of two 64-row halves,
+# K/V tiles of 128 keys, 32 at hd 256): S of 1, 63, 64, 65, 127, 128, 129
+# and 77 (off the 8-grid), Sq < Sk, and groups of 1, 7 and 16 at every hd.
+FLASH_SHAPES = [
+    (1, 128, 128, 4, 4, 64), (2, 256, 256, 4, 2, 64), (1, 256, 256, 8, 1, 32),
+    (2, 128, 128, 4, 4, 128), (2, 100, 100, 4, 2, 64),
+    (4, 1000, 1000, 28, 4, 128), (1, 300, 300, 16, 1, 256),
+    (2, 130, 130, 16, 1, 256),
+    (1, 1, 1, 7, 1, 128), (2, 63, 63, 4, 2, 64), (1, 64, 64, 16, 1, 256),
+    (2, 65, 65, 7, 1, 32), (1, 127, 127, 4, 4, 128), (1, 128, 128, 16, 1, 64),
+    (2, 129, 129, 7, 1, 256), (1, 77, 77, 4, 2, 128),
+    (2, 100, 260, 7, 1, 128), (1, 33, 64, 16, 1, 256), (1, 129, 300, 4, 2, 32),
+    (1, 1, 17, 4, 1, 64)]
+# none, 1, one K/V tile at hd 256 (32), 64, one tile below hd 256 (128),
+# wider than any S
+FLASH_WINDOWS = [0, 1, 32, 64, 128, 4096]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("window", [0, 64])
-def test_flash_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype,
+@pytest.mark.parametrize("window", FLASH_WINDOWS)
+def test_flash_kernel_matches_plain(cuda_device, B, Sq, Sk, H, KV, hd, dtype,
                                     window):
-    gen = torch.Generator(device=cuda_device).manual_seed(S + hd)
-    q = _randn(gen, (B, S, H, hd), dtype, cuda_device)
-    k = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
-    v = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    """bf16 runs on wgmma (P rounded to bf16 before P V), fp32 on the FP32
+    cores; both within TOL of the plain version (fp32 P throughout)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + hd)
+    q = _randn(gen, (B, Sq, H, hd), dtype, cuda_device)
+    k = _randn(gen, (B, Sk, KV, hd), dtype, cuda_device)
+    v = _randn(gen, (B, Sk, KV, hd), dtype, cuda_device)
     n = flash_attention.launches
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -68,6 +86,20 @@ def test_flash_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype,
     ref = flash_attention_ref(q, k, v, window=window)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_fp32_route(cuda_device):
+    """An fp32 call at Qwen2.5-7B's heads keeps the FP32-core route: one
+    launch, within 1e-4 + 1e-4 |ref| of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    q = _randn(gen, (2, 300, 28, 128), torch.float32, cuda_device)
+    k = _randn(gen, (2, 300, 4, 128), torch.float32, cuda_device)
+    v = _randn(gen, (2, 300, 4, 128), torch.float32, cuda_device)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1 and out.dtype == torch.float32
+    _assert_close_rel(out, flash_attention_ref(q, k, v), 1e-4)
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [

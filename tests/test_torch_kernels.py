@@ -68,6 +68,66 @@ def test_flash_plain_matches_jax_kernel(B, S, H, KV, hd, dtype, window):
     _close(out, ref, DTYPES[dtype][2])
 
 
+def _bf16_kernel_numerics(q, k, v, window, block_k):
+    """What the CUDA kernel computes for bf16 inputs, on the CPU: fp32
+    scores, an online softmax in base 2 over key tiles of ``block_k``, the
+    row sum of the fp32 P, and P rounded to bf16 before P V (the one
+    departure from the reference, whose P stays fp32)."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // KVH, dim=2)
+    v = v.float().repeat_interleave(H // KVH, dim=2)
+    qf = q.float()
+    scale_log2 = hd ** -0.5 * 1.4426950408889634
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, hd))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, block_k):
+        kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * scale_log2
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,block_k", [
+    (1, 128, 4, 4, 64, 0, 128),      # MHA, one tile
+    (2, 256, 7, 1, 128, 0, 128),     # Qwen2.5's group of 7, two tiles
+    (1, 256, 8, 2, 32, 64, 128),     # GQA 4:1 with a window
+    (2, 100, 4, 2, 64, 32, 128),     # ragged S with a window
+    (1, 96, 16, 1, 256, 32, 32),     # RecurrentGemma's hd 256, 32-key tiles
+])
+def test_bf16_kernel_numerics_within_the_reference_bar(B, S, H, KV, hd,
+                                                       window, block_k):
+    """The bf16 kernel's departure (P rounded to bf16 before P V) held
+    against the reference's Pallas kernel in interpret mode, on the same
+    bf16 inputs, within the bf16 bar 2e-2 + 2e-2 |ref|: where no card is
+    present this shows the departure stays inside the reference's own
+    bar."""
+    rng = np.random.default_rng(S * 13 + hd)
+    x = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in x)
+    ref = flash_attention_kernel(qj, kj, vj, window=window,
+                                 block_q=min(128, S), block_k=min(128, S),
+                                 interpret=True)
+    out = _bf16_kernel_numerics(qt, kt, vt, window, block_k)
+    assert out.dtype == torch.bfloat16 and out.shape == qt.shape
+    _close(out, ref, 2e-2)
+
+
 DECODE_SHAPES = [
     (2, 1024, 4, 2, 64),
     (1, 2048, 8, 8, 32),
