@@ -8,15 +8,19 @@ imports nothing of JAX or of the JAX package ``src/repro``. Phases, each of
 which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built
-   from ``src/repro_torch/csrc`` (build seconds printed), and the flash
-   kernels' registers, spills and HGMMA/FFMA counts from the ptxas log
-   and the SASS (the bf16 route must run on HGMMA);
+   from ``src/repro_torch/csrc`` (build seconds printed), and the
+   attention kernels' registers, spills and tensor-core/FFMA counts from
+   the ptxas log and the SASS (``flash_build``: bf16 must run on HGMMA;
+   ``decode_build``: bf16 must run on HMMA);
 2. each attention kernel against its plain PyTorch version at the serving
-   path's shapes, in bf16 and fp32, with its time beside the plain
-   version's, ``F.scaled_dot_product_attention``'s (timed as a yardstick
-   only; the port never calls it: with the band as its mask, and for
-   flash without a window also with ``is_causal``), ``decode_attention``'s
-   C entry alone, and the card's bound;
+   path's shapes (Qwen2.5-7B's heads, and StableLM-2-12B's 32/8 heads at
+   hd 160), in bf16 and fp32, with its time through the wrapper beside
+   its C entry alone, the plain version's,
+   ``F.scaled_dot_product_attention``'s (timed as a yardstick only; the
+   port never calls it: with the band as its mask, and for flash without
+   a window also with ``is_causal``) and the card's bound; decode rows
+   also carry the kernel's device time from ``torch.profiler`` and count
+   in their bound only the bytes of the valid keys;
 3. the continuous-batching engine serving full-width Qwen2.5-7B (all 28
    layers, vocab 152,064, random weights from a seed): 16 requests,
    4 slots, 32 new tokens each; the launch counts of both kernels over
@@ -62,7 +66,8 @@ which raises on failure:
 16. ``Trainer.fit`` on that model, async, KL on, fixed rollout backend (the
     only one the ssm family has): the launch counts of ``mamba_scan``,
     ``grpo_logprob`` and both ``fused_rl_loss`` kernels over the run; then
-    a trace of one of its actor updates;
+    one of its actor updates timed (wall, peak memory) and traced (idle
+    share), as for every trainer;
 17. ``rglru_scan`` against its plain version in fp32 at the trainer's
     reference-inference rows (4 x 80 x 4096), a long prefill (B=1,
     S=2048) and two ragged shapes, timed beside the plain version, its C
@@ -71,7 +76,8 @@ which raises on failure:
     trainer's 4 x 80 tokens at windows 2048 and 32) and
     ``decode_attention`` (rings of 2048, 80 and 32 keys, full and partly
     filled) at RecurrentGemma-9B's 16 query heads, 1 KV head and hd 256,
-    bf16 and fp32, beside SDPA (and decode's C entry alone);
+    bf16 and fp32, beside SDPA (and decode's C entry alone); then both at
+    StableLM-2-12B's 32/8 heads and hd 160 at the trainer's sizes;
 18. full-width RecurrentGemma-9B (all 38 layers, vocab 256,000, random
     weights from a seed) served through the fixed engine, as in phase 12;
 19. the teacher-forced rules for it (full forwards through ``rglru_scan``
@@ -86,11 +92,17 @@ which raises on failure:
 23. ``Trainer.fit`` on that model, as phase 16, counting ``rglru_scan``,
     both attention kernels, ``grpo_logprob`` and both ``fused_rl_loss``
     kernels; then a trace of one of its actor updates;
-24. a JSON line per kernel and, last, the device line.
+24. full-width StableLM-2-12B (all 40 layers, d 5120, 32/8 heads, hd 160,
+    vocab 100,352, random weights from a seed) served through the
+    continuous engine as in phase 3: both attention kernels at hd 160;
+25. the teacher-forced rules for it, as in phase 5;
+26. a trace of a short StableLM serving run; then the weights are freed;
+27. a JSON line per kernel and, last, the device line.
 
-Phases 3, 4, 9, 12, 16, 18 and 23 set the launch counts of the kernels
-they check to 0 just before they start and read them just after (phases
-12 and 18 read after the teacher-forced forwards of phases 13 and 19).
+Phases 3, 4, 9, 12, 16, 18, 23 and 24 set the launch counts of the
+kernels they check to 0 just before they start and read them just after
+(phases 12 and 18 read after the teacher-forced forwards of phases 13 and
+19).
 """
 from __future__ import annotations
 
@@ -133,9 +145,13 @@ SSM_REF_ROWS = (4, 80, 8192, 16)   # mamba_scan in the trainer's reference
                                    # inference: 4 rows x 80 x d_inner, N
 HYB_TRAIN_LAYERS = 4       # RecurrentGemma-9B's training depth: one
                            # (rec, rec, attention) tile and one rec layer
+STABLELM_LAYERS = 40       # StableLM-2-12B's depth: all of it (48.5 GB
+                           # of fp32 params once the others are freed)
 HYB_REF_ROWS = (4, 80, 4096)   # rglru_scan in the trainer's reference
                                # inference: 4 rows x 80 x rnn_width
 RING_WINDOW = 32           # local window of the ring-wrap check
+QWEN_HEADS = (28, 4, 128)       # query heads, KV heads, head dim
+STABLELM_HEADS = (32, 8, 160)
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
 SMS = 132
 MAX_NEW = 32
@@ -172,6 +188,14 @@ def _time_ms(torch, fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def _release(torch):
+    """Free what the last phase left: a trainer's threads and engines hold
+    reference cycles, so its weights outlive ``del`` until a collection."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _copies(torch, tensors):
     """Enough copies of ``tensors`` to exceed twice the L2 cache."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -197,17 +221,35 @@ def _check(name, dtype, shape, out, ref):
     return err
 
 
+def _device_ms(torch, fn, arg_sets, calls, name):
+    """Device time per call of the kernels whose names hold ``name``,
+    from ``torch.profiler``'s kernel events over ``calls`` calls cycling
+    through ``arg_sets`` (the calls' host time is not in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / calls / 1e3
+
+
 def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
     """``decode_attention`` against its plain version on random q, K, V
-    with ``fill`` (B,) valid keys a row, timed beside its C entry alone
-    (split and scratch made once, as the wrapper makes them each call),
-    the plain version, SDPA and the bound; returns the row."""
+    with ``fill`` (B,) valid keys a row, timed through the wrapper, its C
+    entry alone, its kernel's device time (profiler), the plain version
+    and SDPA; the bound counts the bytes of the valid keys' K and V rows,
+    q, out and the mask, the only bytes the function needs. Returns the
+    row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
-    from repro_torch.kernels.decode_attention.ops import _splits
+    from repro_torch.kernels.decode_attention.ops import _num_sms, _splits
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                for shape in ((B, 1, H, hd), (B, S, KVH, hd),
@@ -217,13 +259,11 @@ def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
                  decode_attention(q, k, v, valid),
                  decode_attention_ref(q, k, v, valid))
     sets = _copies(torch, (q, k, v, valid))
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid, q))
-    bound, by = _bound(nbytes, 4 * B * H * S * hd, dtype)
-    nsplit, chunk = _splits(dev, B, S, H, KVH)
-    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
-                           device=dev)
+    keys = int(valid.sum().item())
+    e = q.element_size()
+    nbytes = 2 * q.numel() * e + 2 * keys * KVH * hd * e + valid.numel()
+    bound, by = _bound(nbytes, 4 * keys * H * hd, dtype)
+    nsplit, chunk = _splits(_num_sms(dev.index), B, S, H, KVH)
     out = torch.empty_like(q)
     entry = _build.kernel("decode_attention")
     stream = torch.cuda.current_stream().cuda_stream
@@ -233,9 +273,10 @@ def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
         ms=_time_ms(torch, decode_attention, sets, 50),
         entry_ms=_time_ms(torch, lambda q, k, v, m: entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), B, S, H, KVH, hd, nsplit, chunk,
             _build.DTYPE_CODES[dt], stream), sets, 50),
+        device_ms=_device_ms(torch, decode_attention, sets, 50,
+                             "decode_kernel"),
         plain_ms=_time_ms(torch, decode_attention_ref, sets, 10),
         library_ms=_time_ms(
             torch, lambda q, k, v, m: F.scaled_dot_product_attention(
@@ -297,24 +338,21 @@ def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
         bound_ms=bound, bound_by=by)
 
 
-def flash_build_report():
-    """The flash kernels' registers, spills and wgmma serialization notes
-    per instantiation, from the ptxas log of this run's build, and their
-    tensor-core (HGMMA) and FP32-core (FFMA) instructions from the SASS;
-    raises unless every bf16 instantiation runs on HGMMA."""
+def _build_report(source, instance, tensor_op):
+    """Registers, spills and serialization notes per instantiation of the
+    kernels of ``source``, from the ptxas log of this run's build, and
+    their tensor-core (``tensor_op``) and FP32-core (FFMA) instructions
+    from the SASS; ``instance(mangled)`` names an instantiation or is None
+    for a kernel the report skips."""
     import re
     import shutil
 
     from repro_torch.kernels import _build
-
-    def instance(mangled):
-        route = "bf16_wgmma" if "flash_wgmma" in mangled else "fp32"
-        return route + "_hd" + re.search(r"Li(\d+)E", mangled).group(1)
-    log = (_build.BUILD_DIR / "flash_attention.log").read_text().splitlines()
+    log = (_build.BUILD_DIR / f"{source}.log").read_text().splitlines()
     report = {}
     for i, line in enumerate(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if not m:
+        if not m or not instance(m.group(1)):
             continue
         mangled = m.group(1)
         nums = {}
@@ -329,44 +367,79 @@ def flash_build_report():
                                  for x in log)
         report[instance(mangled)] = nums
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build._lib_path(
-        "flash_attention"))], capture_output=True, text=True,
-        check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
     for part in sass.split("Function : ")[1:]:
-        report.setdefault(instance(part.split()[0]), {}).update(
-            hgmma=part.count("HGMMA"), ffma=len(re.findall(r"\bFFMA\b",
-                                                            part)))
+        name = instance(part.split()[0])
+        if name:
+            report.setdefault(name, {}).update({
+                tensor_op.lower(): len(re.findall(rf"\b{tensor_op}\b",
+                                                  part)),
+                "ffma": len(re.findall(r"\bFFMA\b", part))})
     missing = [n for n, r in report.items()
-               if n.startswith("bf16") and not r.get("hgmma")]
+               if n.startswith("bf16") and not r.get(tensor_op.lower())]
     if missing or not any(n.startswith("bf16") for n in report):
-        raise AssertionError(f"bf16 flash_attention without HGMMA: {report}")
+        raise AssertionError(f"bf16 {source} without {tensor_op}: {report}")
     return report
+
+
+def _hd(mangled):
+    import re
+    return re.search(r"Li(\d+)E", mangled).group(1)
+
+
+def flash_build_report():
+    """The flash kernels per instantiation (``bf16_wgmma_hd192`` runs hd
+    160); raises unless every bf16 instantiation runs on HGMMA."""
+    return _build_report(
+        "flash_attention",
+        lambda m: ("bf16_wgmma" if "flash_wgmma" in m else "fp32") + "_hd"
+        + _hd(m), "HGMMA")
+
+
+def decode_build_report():
+    """The decode kernels per instantiation; raises unless every bf16
+    instantiation runs on the tensor cores (HMMA, from mma.sync)."""
+    return _build_report(
+        "decode_attention",
+        lambda m: ("bf16" if "bfloat16" in m else "fp32") + "_hd" + _hd(m)
+        if "decode_kernel" in m else None, "HMMA")
 
 
 def phase_kernels(torch, max_len, timed):
     """Kernel vs plain version at Qwen2.5-7B's attention shapes (28 heads,
-    4 KV heads, hd 128); returns {name: row} for the timed shapes."""
+    4 KV heads, hd 128), the decode rows partly filled (the timed one),
+    full, and ragged with an empty row; then at StableLM-2-12B's (32 heads,
+    8 KV heads, hd 160). Returns {name: row} for the timed shapes."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    H, KVH, hd = 28, 4, 128
     rows, out = [], {}
     for dtype in ("bfloat16", "float32"):
-        for B, S, ragged in ((4, max_len, False), (4, 4099, True)):
-            lo = 0 if ragged else 1        # ragged: one row with no key
-            fill = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
-            fill[0] = lo
-            row = _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill)
+        for (H, KVH, hd), B, S, fill in (
+                (QWEN_HEADS, 4, max_len, "part"),
+                (QWEN_HEADS, 4, max_len, "full"),
+                (QWEN_HEADS, 4, 4099, "ragged"),
+                (STABLELM_HEADS, 4, max_len, "part")):
+            lo = 0 if fill == "ragged" else 1   # ragged: a row with no key
+            lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
+            lens[0] = lo
+            if fill == "full":
+                lens[:] = S
+            row = _decode_row(torch, gen, dtype, B, S, H, KVH, hd, lens)
             rows.append(row)
-            if (dtype, B, S) == timed["decode_attention"]:
+            if (dtype, B, S, H, fill) == timed["decode_attention"]:
                 out["decode_attention"] = row
-        for B, S, window in ((4, 8, 0), (4, 8, 256), (4, 1000, 0),
-                             (4, 1000, 256), (4, 2048, 0), (4, 2048, 256),
-                             (1, SEQ_LEN_MAX, 0)):
+        for (H, KVH, hd), B, S, window in (
+                (QWEN_HEADS, 4, 8, 0), (QWEN_HEADS, 4, 8, 256),
+                (QWEN_HEADS, 4, 1000, 0), (QWEN_HEADS, 4, 1000, 256),
+                (QWEN_HEADS, 4, 2048, 0), (QWEN_HEADS, 4, 2048, 256),
+                (QWEN_HEADS, 1, SEQ_LEN_MAX, 0), (STABLELM_HEADS, 4, 8, 0),
+                (STABLELM_HEADS, 1, SEQ_LEN_MAX, 0)):
             row = _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window)
             rows.append(row)
-            if (dtype, B, S, window) == timed["flash_attention"]:
+            if (dtype, B, S, H, window) == timed["flash_attention"]:
                 out["flash_attention"] = row
     for row in rows:
         print("kernel_vs_plain", json.dumps(row))
@@ -503,6 +576,72 @@ def _traced(torch, fn, phase):
     return out
 
 
+def serve_continuous(torch, cfg, eng, params, prompts, reg, smi):
+    """Serve ``prompts`` through the continuous-batching engine ``eng``,
+    counting both attention kernels' launches from 0: every request
+    finishes, ids within the vocab, logprobs finite and <= 0, no page
+    leaked, both kernels launched. Prints the phase line; returns (the
+    finished sequences, the launches)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    seqs = [eng.make_sequence(p) for p in prompts]
+    decode_attention.launches = flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    done, paused = eng.generate(params, seqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    n_new = sum(q.gen_len for q in done)
+    if len(done) != len(seqs) or paused:
+        raise AssertionError(f"{len(done)}/{len(seqs)} requests finished")
+    for q in done:
+        if max(q.tokens) >= cfg.vocab_size or min(q.tokens) < 0:
+            raise AssertionError(f"uid {q.uid}: token id out of range")
+        lps = q.logprobs[q.prompt_len:]
+        if not all(math.isfinite(x) and x <= 0.0 for x in lps):
+            raise AssertionError(f"uid {q.uid}: bad logprobs {lps[:4]}")
+    if eng.pool.pages_in_use:
+        raise AssertionError(f"{eng.pool.pages_in_use} KV pages leaked")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never ran on the main path: "
+                             f"{launches}")
+    snap = reg.snapshot()
+    pre = snap["rollout_prefill_seconds"]["values"][0]
+    dec = snap["rollout_decode_step_seconds"]["values"][0]
+    print(json.dumps({
+        "phase": "continuous_engine", "model": cfg.name,
+        "layers": cfg.num_layers, "requests": len(done),
+        "new_tokens": n_new, "wall_s": wall, "tokens_per_s": n_new / wall,
+        "card": smi, "launches": launches,
+        "prefill_dispatches": pre["count"], "prefill_s_sum": pre["sum"],
+        "decode_steps": dec["count"], "decode_step_s_p50": dec["p50"],
+        "decode_s_sum": dec["sum"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return done, launches
+
+
+def continuous_teacher_forced(torch, params, cfg, done, prompts, max_len):
+    """The teacher-forced rules over a short and the longest served
+    sequence; the fp32 run decodes two prompts through an fp32 engine."""
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    by_uid = sorted(done, key=lambda q: q.uid)
+
+    def run32(cfg32):
+        eng32 = ContinuousBatchingEngine(
+            cfg32, num_slots=2, max_len=max_len,
+            max_new_tokens=8, temperature=TEMPERATURE, seed=SEED,
+            dtype=torch.float32, metrics=MetricsRegistry())
+        done32, _ = eng32.generate(params, [eng32.make_sequence(prompts[0]),
+                                            eng32.make_sequence(prompts[9])])
+        return _cb_seqs(done32)
+    _teacher_forced(torch, params, cfg, _cb_seqs([by_uid[0], by_uid[-1]]),
+                    run32)
+
+
 def profile_serving(torch, params, cfg, prompts, max_len):
     """Trace 4 long prompts (prefill + 8 decode rounds) through the
     continuous engine."""
@@ -513,7 +652,9 @@ def profile_serving(torch, params, cfg, prompts, max_len):
         cfg, num_slots=NUM_SLOTS, max_len=max_len, max_new_tokens=9,
         temperature=TEMPERATURE, seed=SEED, metrics=MetricsRegistry())
     seqs = [eng.make_sequence(p) for p in prompts[8:12]]
-    _traced(torch, lambda: eng.generate(params, seqs), "profile")
+    _traced(torch, lambda: eng.generate(params, seqs),
+            "profile" if cfg.name == "qwen2.5-7b" else
+            f"profile_serving {cfg.name}")
 
 
 def _loss_inputs(torch, gen, N, V, dt):
@@ -826,6 +967,18 @@ def profile_actor_update(torch, trainer):
     eng.global_batch = 4
     rows = _train_rows(trainer.cfg, 4, SEED + 1)
     eng.update_actor(rows)                      # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    eng.update_actor(rows)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "actor_update", "model": trainer.cfg.name,
+                      "layers": trainer.cfg.num_layers,
+                      "wall_ms": (time.monotonic() - t0) * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_over_resident_gb":
+                          (torch.cuda.max_memory_allocated() - base) / 1e9}))
     out = _traced(torch, lambda: eng.update_actor(rows),
                   f"profile_actor_update {trainer.cfg.name}")
     if not out or not math.isfinite(out["loss"]):
@@ -1064,6 +1217,64 @@ def phase_hybrid_attention(torch, cfg):
     torch.cuda.empty_cache()
 
 
+def phase_stablelm_attention(torch):
+    """Both attention kernels at StableLM-2-12B's 32 query heads, 8 KV
+    heads and hd 160 (bf16 flash runs it at 192), bf16 and fp32, at the
+    trainer-sized shapes: flash over 4 x 80 tokens, decode over the
+    FIXED_PROMPT_MAX + FIXED_NEW keys of a short request, full and partly
+    filled."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(160)
+    H, KVH, hd = STABLELM_HEADS
+    ring = FIXED_PROMPT_MAX + FIXED_NEW
+    for dtype in ("bfloat16", "float32"):
+        print("kernel_vs_plain", json.dumps(_flash_row(
+            torch, gen, dtype, NUM_SLOTS, 80, H, KVH, hd, 0)))
+        for fill in (torch.full((NUM_SLOTS,), ring, device=dev),
+                     torch.randint(1, ring + 1, (NUM_SLOTS,), generator=gen,
+                                   device=dev)):
+            print("kernel_vs_plain", json.dumps(_decode_row(
+                torch, gen, dtype, NUM_SLOTS, ring, H, KVH, hd, fill)))
+    torch.cuda.empty_cache()
+
+
+def phase_stablelm_serving(torch, smi):
+    """Full-width StableLM-2-12B (hd 160; STABLELM_LAYERS layers, random
+    weights from a seed) served through the continuous engine as Qwen2.5
+    is in phase 3, then the teacher-forced rules as in phase 5 and a
+    trace as in phase 6; the weights are freed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    from repro_torch.models import count_params, init_params
+    _release(torch)
+    print(f"resident before StableLM-2-12B: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    cfg = dataclasses.replace(get_config("stablelm_12b"),
+                              num_layers=STABLELM_LAYERS)
+    prompts = make_prompts(SEED)
+    reg = MetricsRegistry()
+    eng = ContinuousBatchingEngine(
+        cfg, num_slots=NUM_SLOTS, max_len=max(len(p) for p in prompts)
+        + MAX_NEW, max_new_tokens=MAX_NEW, temperature=TEMPERATURE,
+        seed=SEED, metrics=reg)
+    t0 = time.monotonic()
+    params = init_params(SEED, cfg)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"vocab={cfg.vocab_size} params={count_params(params)} "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) "
+          f"init {time.monotonic() - t0:.3f}s")
+    done, _ = serve_continuous(torch, cfg, eng, params, prompts, reg, smi)
+    continuous_teacher_forced(torch, params, cfg, done, prompts,
+                              eng.max_len)
+    profile_serving(torch, params, cfg, prompts, eng.max_len)
+    del params, eng, done
+    _release(torch)
+
+
 def phase_ring_check(torch, cfg):
     """The hybrid at full width cut to HYB_TRAIN_LAYERS layers with a
     RING_WINDOW-key window: 4 requests of FIXED_PROMPT_MAX prompt tokens
@@ -1117,6 +1328,7 @@ def main():
     _build.build_all()
     print(f"kernel build seconds {_build.build_seconds:.3f}")
     print("flash_build", json.dumps(flash_build_report()))
+    print("decode_build", json.dumps(decode_build_report()))
 
     cfg = get_config("qwen2_5_7b")
     prompts = make_prompts(SEED)
@@ -1128,8 +1340,10 @@ def main():
     max_len = eng.max_len                 # the decode window, page-rounded
 
     # -- 2. kernels vs plain versions --------------------------------------
-    timed = {"decode_attention": ("bfloat16", NUM_SLOTS, max_len),
-             "flash_attention": ("bfloat16", 1, SEQ_LEN_MAX, 0)}
+    timed = {"decode_attention": ("bfloat16", NUM_SLOTS, max_len,
+                                  QWEN_HEADS[0], "part"),
+             "flash_attention": ("bfloat16", 1, SEQ_LEN_MAX, QWEN_HEADS[0],
+                                 0)}
     krows = phase_kernels(torch, max_len, timed)
     torch.cuda.empty_cache()
 
@@ -1141,40 +1355,8 @@ def main():
           f"vocab={cfg.vocab_size} params={count_params(params)} "
           f"({cfg.param_dtype}, compute {cfg.compute_dtype}) "
           f"init {time.monotonic() - t0:.3f}s")
-    seqs = [eng.make_sequence(p) for p in prompts]
-    decode_attention.launches = flash_attention.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    done, paused = eng.generate(params, seqs)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "flash_attention": flash_attention.launches}
-    n_new = sum(q.gen_len for q in done)
-    if len(done) != len(seqs) or paused:
-        raise AssertionError(f"{len(done)}/{len(seqs)} requests finished")
-    for q in done:
-        if max(q.tokens) >= cfg.vocab_size or min(q.tokens) < 0:
-            raise AssertionError(f"uid {q.uid}: token id out of range")
-        lps = q.logprobs[q.prompt_len:]
-        if not all(math.isfinite(x) and x <= 0.0 for x in lps):
-            raise AssertionError(f"uid {q.uid}: bad logprobs {lps[:4]}")
-    if eng.pool.pages_in_use:
-        raise AssertionError(f"{eng.pool.pages_in_use} KV pages leaked")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel never ran on the main path: "
-                             f"{launches}")
-    snap = reg.snapshot()
-    pre = snap["rollout_prefill_seconds"]["values"][0]
-    dec = snap["rollout_decode_step_seconds"]["values"][0]
-    print(json.dumps({
-        "phase": "continuous_engine", "requests": len(done),
-        "new_tokens": n_new, "wall_s": wall, "tokens_per_s": n_new / wall,
-        "card": smi, "launches": launches,
-        "prefill_dispatches": pre["count"], "prefill_s_sum": pre["sum"],
-        "decode_steps": dec["count"], "decode_step_s_p50": dec["p50"],
-        "decode_s_sum": dec["sum"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    done, launches = serve_continuous(torch, cfg, eng, params, prompts, reg,
+                                      smi)
 
     # -- 4. fixed engine ---------------------------------------------------
     decode_attention.launches = 0
@@ -1198,23 +1380,11 @@ def main():
                           decode_attention.launches}))
 
     # -- 5. teacher-forced consistency -------------------------------------
-    by_uid = sorted(done, key=lambda q: q.uid)
-
-    def run32(cfg32):
-        eng32 = ContinuousBatchingEngine(
-            cfg32, num_slots=2, max_len=max_len,
-            max_new_tokens=8, temperature=TEMPERATURE, seed=SEED,
-            dtype=torch.float32, metrics=MetricsRegistry())
-        done32, _ = eng32.generate(params, [eng32.make_sequence(prompts[0]),
-                                            eng32.make_sequence(prompts[9])])
-        return _cb_seqs(done32)
-    # a short sequence and the longest
-    _teacher_forced(torch, params, cfg, _cb_seqs([by_uid[0], by_uid[-1]]),
-                    run32)
+    continuous_teacher_forced(torch, params, cfg, done, prompts, max_len)
 
     # -- 6. where the device time goes ---------------------------------------
     profile_serving(torch, params, cfg, prompts, max_len)
-    del params, eng, done, seqs, by_uid
+    del params, eng, done
     torch.cuda.empty_cache()
 
     # -- 7. the training path's kernels vs plain versions ---------------------
@@ -1236,7 +1406,7 @@ def main():
     # -- 10. where an actor update's device time goes ------------------------
     profile_actor_update(torch, trainer)
     del trainer
-    torch.cuda.empty_cache()
+    _release(torch)
 
     # -- 11. the selective scan vs its plain version --------------------------
     ssm = get_config("falcon_mamba_7b")
@@ -1262,12 +1432,13 @@ def main():
     launches["mamba_scan"] = ssm_launches["mamba_scan"]
     profile_actor_update(torch, trainer)
     del trainer
-    torch.cuda.empty_cache()
+    _release(torch)
 
-    # -- 17. the RG-LRU scan, and attention at hd 256, vs plain versions ------
+    # -- 17. the RG-LRU scan, attention at hd 256 and 160, vs plain versions --
     hyb = get_config("recurrentgemma_9b")
     krows["rglru_scan"] = phase_rglru_scan(torch, HYB_REF_ROWS)
     phase_hybrid_attention(torch, hyb)
+    phase_stablelm_attention(torch)
 
     # -- 18-20. RecurrentGemma-9B served at full width ------------------------
     phase_fixed_serving(torch, hyb, smi,
@@ -1289,8 +1460,12 @@ def main():
     launches["rglru_scan"] = hyb_launches["rglru_scan"]
     profile_actor_update(torch, trainer)
     del trainer
+    _release(torch)
 
-    # -- 24. output -----------------------------------------------------------
+    # -- 24-26. StableLM-2-12B (hd 160) served at full width ------------------
+    phase_stablelm_serving(torch, smi)
+
+    # -- 27. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",

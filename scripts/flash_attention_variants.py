@@ -41,11 +41,11 @@ import torch  # noqa: E402
 VARIANTS = {
     "shipped": {},
     "hd256_bk64": {
-        "static constexpr int BK = HD == 256 ? 32 : 128;":
-            "static constexpr int BK = HD == 256 ? 64 : 128;",
+        "static constexpr int BK = HD == 256 ? 32 : HD == 192 ? 64 : 128;":
+            "static constexpr int BK = HD == 256 ? 64 : HD == 192 ? 64 : 128;",
         "static constexpr int STAGES = HD == 256 ? 4 : 2;":
             "static constexpr int STAGES = 2;"},
-    "bk64": {"static constexpr int BK = HD == 256 ? 32 : 128;":
+    "bk64": {"static constexpr int BK = HD == 256 ? 32 : HD == 192 ? 64 : 128;":
              "static constexpr int BK = HD == 256 ? 32 : 64;"},
     "role_unbroadcast": {"__shfl_sync(0xffffffffu, threadIdx.x / 128, 0)":
                          "threadIdx.x / 128"},

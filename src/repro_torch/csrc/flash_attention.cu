@@ -24,7 +24,12 @@
 // the next tiles overlap the products on this one, and TMA zero-fills
 // rows past Sq and Sk. Operands sit in shared memory as bf16 in the
 // 128-byte swizzle (64-byte at hd 32) that wgmma's descriptors read;
-// setmaxnreg moves the producer's registers to the consumers. Per tile,
+// setmaxnreg moves the producer's registers to the consumers. The tensor
+// maps view each tensor as (hd, heads, S, B) with the true hd innermost, so
+// hd 160 runs in the hd-192 instantiation (64-key tiles): TMA fills the
+// columns past 160 with zeros on the loads, which changes no score and no
+// output column, and drops them on the store; the scale stays 160^-0.5. Per
+// tile,
 // S = Q K^T is m64nBKk16 with both operands K-major in shared memory; the
 // online softmax runs on the fp32 accumulator fragment in registers (row
 // max and sum over the quad, exp2 with scale*log2(e) folded in; masks only
@@ -50,7 +55,7 @@
 // different key rows hit different banks); each warp owns 8 query rows and
 // each lane one key of the tile for QK^T, then one lane per 32 output
 // columns for PV. At hd=256 its tiles take 140,800 bytes of shared memory,
-// one block per SM.
+// one block per SM. hd 160 has its own instantiation (5 columns a lane).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -240,6 +245,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
+    case 160: return launch<T, 160>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -264,8 +270,10 @@ template <int HD>
 struct Tile {
   // keys per K/V tile and depth of the ring: at hd 256 the O accumulator
   // takes 128 registers a thread, so S gets a 32-key tile (16 more), and
-  // four of them keep as many bytes in flight as two of 64 keys
-  static constexpr int BK = HD == 256 ? 32 : 128;
+  // four of them keep as many bytes in flight as two of 64 keys; hd 160
+  // runs as 192 (three 64-column blocks, the last half zeros), where two
+  // stages of 128 keys would not fit beside the Q tile
+  static constexpr int BK = HD == 256 ? 32 : HD == 192 ? 64 : 128;
   static constexpr int STAGES = HD == 256 ? 4 : 2;
   static constexpr int ROW = HD < 64 ? 2 * HD : 128;  // bytes a swizzled row
   static constexpr int CB = ROW / 2;                  // columns a row block
@@ -284,27 +292,6 @@ struct Tile {
 template <int ROW>
 __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
   return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Shared memory: Q tile, STAGES K tiles, STAGES V tiles, then barriers.
@@ -335,8 +322,8 @@ __device__ __forceinline__ void produce(const Smem<Tile<HD>::STAGES>& sm,
   mbar_expect_tx(sm.bar_q(), T::Q_BYTES);
 #pragma unroll
   for (int cb = 0; cb < T::NCB; ++cb)
-    tma_load_3d(sm.q + cb * BM * T::ROW, tq, sm.bar_q(), h * HD + cb * T::CB,
-                q0, b);
+    tma_load_4d(sm.q + cb * BM * T::ROW, tq, sm.bar_q(), cb * T::CB, h, q0,
+                b);
   for (int t = t_lo, i = 0; t <= t_hi; ++t, ++i) {
     const int s = i % STAGES;
     mbar_wait(sm.empty(s), ((i / STAGES) & 1) ^ 1);
@@ -344,13 +331,13 @@ __device__ __forceinline__ void produce(const Smem<Tile<HD>::STAGES>& sm,
     mbar_expect_tx(sm.full_k(s), T::KV_BYTES);
 #pragma unroll
     for (int cb = 0; cb < T::NCB; ++cb)
-      tma_load_3d(k + cb * T::BK * T::ROW, tk, sm.full_k(s),
-                  kvh * HD + cb * T::CB, t * T::BK, b);
+      tma_load_4d(k + cb * T::BK * T::ROW, tk, sm.full_k(s), cb * T::CB,
+                  kvh, t * T::BK, b);
     mbar_expect_tx(sm.full_v(s), T::KV_BYTES);
 #pragma unroll
     for (int cb = 0; cb < T::NCB; ++cb)
-      tma_load_3d(v + cb * T::BK * T::ROW, tv, sm.full_v(s),
-                  kvh * HD + cb * T::CB, t * T::BK, b);
+      tma_load_4d(v + cb * T::BK * T::ROW, tv, sm.full_v(s), cb * T::CB,
+                  kvh, t * T::BK, b);
   }
 }
 
@@ -526,8 +513,7 @@ __device__ __forceinline__ void consume(const Smem<Tile<HD>::STAGES>& sm,
   if (threadIdx.x % 128 == 0) {
 #pragma unroll
     for (int nb = 0; nb < T::NCB; ++nb)
-      tma_store_3d(to, q_rows + nb * BM * T::ROW, h * HD + nb * T::CB, qlo,
-                   b);
+      tma_store_4d(to, q_rows + nb * BM * T::ROW, nb * T::CB, h, qlo, b);
     tma_store_wait();
   }
 }
@@ -610,18 +596,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A TMA map over a bf16 (B, S, heads, hd) tensor seen as (B, S, heads*hd),
-// copied in boxes of `rows` x `cols`.
+// A TMA map over a bf16 (B, S, heads, hd) tensor, dims innermost first,
+// copied in boxes of `rows` positions x `cols` columns of one head. The
+// inner dim is the true hd: a box that reaches past it reads zeros and
+// stores nothing there.
 int tile_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
              int hd, int rows, int cols, CUtensorMapSwizzle swz) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   const cuuint64_t row = (cuuint64_t)heads * hd;
-  const cuuint64_t dims[3] = {row, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {row * 2, (cuuint64_t)S * row * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row * 2,
+                                 (cuuint64_t)S * row * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(ptr), dims, strides, box, step,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -629,9 +619,10 @@ int tile_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// HD is the instantiation's width, hd <= HD the tensors' head dim.
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KVH, int window,
+                 int B, int Sq, int Sk, int H, int KVH, int hd, int window,
                  float scale_log2, cudaStream_t st) {
   using T = wg::Tile<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -642,10 +633,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                                                : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tq, tk, tv, to;
   int err;
-  if ((err = tile_map(&tq, q, B, Sq, H, HD, wg::BM, T::CB, swz)) ||
-      (err = tile_map(&tk, k, B, Sk, KVH, HD, T::BK, T::CB, swz)) ||
-      (err = tile_map(&tv, v, B, Sk, KVH, HD, T::BK, T::CB, swz)) ||
-      (err = tile_map(&to, out, B, Sq, H, HD, 64, T::CB, swz)))
+  if ((err = tile_map(&tq, q, B, Sq, H, hd, wg::BM, T::CB, swz)) ||
+      (err = tile_map(&tk, k, B, Sk, KVH, hd, T::BK, T::CB, swz)) ||
+      (err = tile_map(&tv, v, B, Sk, KVH, hd, T::BK, T::CB, swz)) ||
+      (err = tile_map(&to, out, B, Sq, H, hd, 64, T::CB, swz)))
     return err;
   const dim3 grid((Sq + wg::BM - 1) / wg::BM, H, B);
   wg::flash_wgmma<HD><<<grid, wg::THREADS, T::SMEM, st>>>(
@@ -657,10 +648,11 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int KVH, int hd, int window,
                    float scale_log2, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale_log2, st);
-    case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale_log2, st);
-    case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale_log2, st);
-    case 256: return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, H, KVH, window, scale_log2, st);
+    case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, KVH, hd, window, scale_log2, st);
+    case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, window, scale_log2, st);
+    case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, window, scale_log2, st);
+    case 160: return launch_wgmma<192>(q, k, v, out, B, Sq, Sk, H, KVH, hd, window, scale_log2, st);
+    case 256: return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, H, KVH, hd, window, scale_log2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

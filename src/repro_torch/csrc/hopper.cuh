@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: shared
 // memory addresses, mbarriers, TMA tile copies, warpgroup matrix multiplies
-// (wgmma) and register hand-over between warpgroups. Each wraps one PTX
+// (wgmma), register hand-over between warpgroups, and the warp-level
+// pieces (cp.async, ldmatrix, mma.sync, quad reductions). Each wraps one PTX
 // instruction or a short fixed sequence; the kernels own the layouts.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,29 +73,30 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ---- TMA ------------------------------------------------------------------
 
-// Copies the box at (c0, c1, c2) of `map` into shared memory at `dst`;
-// completion is counted in bytes on `bar`. Out-of-range elements are 0.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+// Copies the box at (c0, c1, c2, c3) of `map` into shared memory at `dst`;
+// completion is counted in bytes on `bar`, the whole box's bytes even where
+// it reaches past the tensor: out-of-range elements are 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
-                                            int c2) {
+                                            int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
-// Copies shared memory at `src` to the box at (c0, c1, c2) of `map`;
+// Copies shared memory at `src` to the box at (c0, c1, c2, c3) of `map`;
 // out-of-range elements are not written.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
-                                             int c2) {
+                                             int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -288,6 +291,81 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   static_assert(N == 32 || N == 64, "wgmma_rs: N is 32 or 64");
   if constexpr (N == 32) wgmma_rs_n32(d, a, b);
   else wgmma_rs_n64(d, a, b);
+}
+
+// ---- warp-level tensor cores, cp.async, fragment helpers -------------------
+
+// 16-byte asynchronous copy global -> shared; `bytes` < 16 fills the rest
+// with zeros, and 0 reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
+// addresses of matrix j; lane t gets row t/4, columns 2(t%4) and 2(t%4)+1
+// of each (transposed: rows 2(t%4) and 2(t%4)+1 of column t/4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D(16 x 8, fp32) += A(16 x 16, bf16, row) * B(16 x 8, bf16, col), one warp.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Reductions over the four lanes of a quad (one row of an mma fragment).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace hopper

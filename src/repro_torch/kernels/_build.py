@@ -32,10 +32,10 @@ _L = ctypes.c_longlong
 # cudaGetLastError() after its launch. dtype: 0 = float32, 1 = bfloat16.
 SIGNATURES = {
     "decode_attention": {
-        # q, k, v, valid, part_m, part_l, part_acc, out, B, S, H, KVH, hd,
-        # nsplit, chunk, dtype, stream
-        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P]},
+        # q, k, v, valid, out, B, S, H, KVH, hd, nsplit, chunk, dtype,
+        # stream
+        "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P]},
     "flash_attention": {
         # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, dtype, stream
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -144,7 +144,7 @@ def count_launch(wrapper) -> None:
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU: the wrappers then run their
     plain versions. Anything else takes the kernel or raises."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def require_no_grad(name: str, *tensors) -> None:
@@ -164,7 +164,7 @@ def check(name: str, err: int) -> None:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 
 
 def aligned(t):
@@ -177,9 +177,9 @@ def aligned(t):
 def check_cuda_inputs(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned tensor on
     one CUDA device (a kernel takes nothing else)."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()          # -1 on the CPU
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+        if t.get_device() != index or not t.is_cuda:
             raise ValueError(f"{name}: inputs must share one CUDA device "
                              f"(got {[str(x.device) for x in tensors]})")
         if not t.is_contiguous() or t.data_ptr() % 16:

@@ -8,8 +8,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
-GMAX = 8           # query heads per block (csrc/decode_attention.cu)
-MIN_SPLIT = 64     # keys per S split, at least
+GROUP = 16         # query heads per block: the tensor-core tile's M
+MAX_SPLITS = 8     # S splits of one (batch, KV head, group): one cluster
+TILE = 64          # keys per K/V tile; splits are cut at whole tiles
 
 
 @functools.lru_cache(maxsize=None)
@@ -17,13 +18,14 @@ def _num_sms(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(device, B, S, H, KVH):
-    """(nsplit, chunk): cut S so that about two blocks per SM run, each
-    over ``chunk`` keys; every split holds at least one key."""
-    blocks = B * KVH * -(-(H // KVH) // GMAX)
-    n_sm = _num_sms(device.index)
-    nsplit = max(1, min(-(-S // MIN_SPLIT), -(-2 * n_sm // blocks)))
-    chunk = -(-S // nsplit)
+@functools.lru_cache(maxsize=None)
+def _splits(n_sm, B, S, H, KVH):
+    """(nsplit, chunk): cut S into at most MAX_SPLITS splits of whole
+    tiles so that the blocks come to about two per SM (as many as fit
+    there below hd 256); every split holds at least one key."""
+    blocks = B * KVH * -(-(H // KVH) // GROUP)
+    nsplit = max(1, min(MAX_SPLITS, -(-S // TILE), 2 * n_sm // blocks))
+    chunk = TILE * -(-S // (TILE * nsplit))
     return -(-S // chunk), chunk
 
 
@@ -50,17 +52,11 @@ def decode_attention(q, k_cache, v_cache, valid):
             or v_cache.dtype != q.dtype or valid.dtype != torch.bool):
         raise ValueError("decode_attention: q/k/v must share float32 or "
                          "bfloat16 and valid must be bool")
-    nsplit, chunk = _splits(q.device, B, S, H, KVH)
+    nsplit, chunk = _splits(_num_sms(q.device.index), B, S, H, KVH)
     out = torch.empty_like(q)
-    part_m = torch.empty((B, H, nsplit), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
-                           device=q.device)
     err = _build.kernel("decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, S, H, KVH, hd, nsplit, chunk,
+        valid.data_ptr(), out.data_ptr(), B, S, H, KVH, hd, nsplit, chunk,
         _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)

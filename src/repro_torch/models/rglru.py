@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.layers import act_fn, dense, init_dense, normal_init
+from repro_torch.models.scan import associative_scan
 
 _C = 8.0  # Griffin's recurrence sharpness constant
 _gelu = act_fn("gelu")
@@ -79,20 +80,6 @@ def _conv_step(p, x, buf):
     return out + p["conv_b"].to(x.dtype), window
 
 
-def associative_scan(a, b):
-    """h_t = a_t h_{t-1} + b_t over axis 1 from a zero state, as a
-    log-depth (Hillis-Steele) scan of the pairs (a, b) under
-    (a_l, b_l) . (a_r, b_r) = (a_l a_r, b_r + a_r b_l): differentiable and
-    out of place, the reference's plain route (``jax.lax.associative_scan``)
-    in another order of the same products."""
-    S, d = a.shape[1], 1
-    while d < S:
-        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
-        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
-        d *= 2
-    return b
-
-
 def rglru_full(p, x, cfg, use_kernels=False):
     """x: (B,S,d) -> (B,S,d). ``use_kernels`` takes the CUDA scan (its
     plain version on the CPU); else the associative scan."""
@@ -101,7 +88,7 @@ def rglru_full(p, x, cfg, use_kernels=False):
     z = dense(p["in_z"], x, cd)
     xc = _conv(p, xb)
     a, bx = _gates(p, xc, cd)
-    h = rglru_scan(a, bx) if use_kernels else associative_scan(a, bx)
+    h = rglru_scan(a, bx) if use_kernels else associative_scan(a, bx)[1]
     y = h.to(cd) * _gelu(z)
     return dense(p["out"], y, cd)
 

@@ -3,7 +3,10 @@
 The full-sequence path has the reference's three routes: the hand-written
 ``kernels/mamba_scan`` (``use_kernels``; forward only), the chunked scan
 (``cfg.ssm_chunk > 0``; each chunk recomputed in the backward through
-``torch.utils.checkpoint``) and the plain scan over the whole sequence.
+``torch.utils.checkpoint``, so peak memory is one chunk's) and the plain
+scan over the whole sequence. The two training routes scan in log depth
+(``models/scan.py``), as the reference's ``jax.lax.associative_scan``
+does, over (B, S, d_inner, N) fp32 pairs.
 Decode keeps an O(1)-size recurrent state ``(h, conv window)`` in fp32,
 updated in place.
 
@@ -18,9 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
-                                            scan_from)
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.layers import dense, init_dense, normal_init
+from repro_torch.models.scan import associative_scan
 
 
 def init_mamba(gen, cfg, dtype=torch.float32, layers=()):
@@ -67,6 +70,20 @@ def _causal_conv(p, x, cfg):
     return out + p["conv_b"].to(x.dtype)
 
 
+def _scan_pairs(x, dt, a, b):
+    """(exp(dt A), dt x B): the recurrence's (B,S,di,ds) factors."""
+    return (torch.exp(dt[..., None] * a),
+            (dt * x)[..., None] * b[:, :, None, :])
+
+
+def _scan_chunk(x, dt, a, b, c, h0):
+    """y (B,C,di) over one chunk from state ``h0`` (B,di,ds), and the
+    chunk's last state."""
+    prod, h = associative_scan(*_scan_pairs(x, dt, a, b))
+    h = h + prod * h0[:, None]
+    return torch.einsum("bcdn,bcn->bcd", h, c), h[:, -1]
+
+
 def mamba_full(p, x, cfg, use_kernels=False, chunk: int = 0):
     """x: (B,S,d) -> (B,S,d). ``use_kernels`` takes the CUDA scan (its
     plain version on the CPU); else ``chunk`` > 0 dividing S takes the
@@ -90,12 +107,13 @@ def mamba_full(p, x, cfg, use_kernels=False, chunk: int = 0):
         ys = []
         for s0 in range(0, S, chunk):
             sl = slice(s0, s0 + chunk)
-            yc, h = checkpoint(scan_from, xf[:, sl], dt[:, sl], a, b[:, sl],
-                               c[:, sl], h, use_reentrant=False)
+            yc, h = checkpoint(_scan_chunk, xf[:, sl], dt[:, sl], a,
+                               b[:, sl], c[:, sl], h, use_reentrant=False)
             ys.append(yc)
         y = torch.cat(ys, dim=1)
     else:
-        y = mamba_scan_ref(xf, dt, a, b, c)
+        _, h = associative_scan(*_scan_pairs(xf, dt, a, b))
+        y = torch.einsum("bsdn,bsn->bsd", h, c)
     y = y + xf * p["d_skip"].float()
     y = y.to(cd) * F.silu(z)
     return dense(p["out_proj"], y, cd)

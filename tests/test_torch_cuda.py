@@ -62,7 +62,11 @@ FLASH_SHAPES = [
     (2, 65, 65, 7, 1, 32), (1, 127, 127, 4, 4, 128), (1, 128, 128, 16, 1, 64),
     (2, 129, 129, 7, 1, 256), (1, 77, 77, 4, 2, 128),
     (2, 100, 260, 7, 1, 128), (1, 33, 64, 16, 1, 256), (1, 129, 300, 4, 2, 32),
-    (1, 1, 17, 4, 1, 64)]
+    (1, 1, 17, 4, 1, 64),
+    # hd 160 (StableLM-2-12B; bf16 runs it at 192 with 64-key tiles): its
+    # 32/8 heads, a group of 7, the 64-key tile's edges, Sq < Sk
+    (1, 300, 300, 32, 8, 160), (2, 129, 129, 7, 1, 160), (1, 65, 65, 4, 2, 160),
+    (2, 63, 130, 4, 4, 160)]
 # none, 1, one K/V tile at hd 256 (32), 64, one tile below hd 256 (128),
 # wider than any S
 FLASH_WINDOWS = [0, 1, 32, 64, 128, 4096]
@@ -105,7 +109,7 @@ def test_flash_kernel_fp32_route(cuda_device):
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (2, 1024, 4, 2, 64), (1, 2048, 8, 8, 32), (3, 512, 4, 1, 128),
     (3, 100, 4, 2, 64), (4, 4099, 28, 4, 128), (2, 5, 16, 1, 64),
-    (4, 2048, 16, 1, 256), (3, 77, 16, 1, 256)])
+    (4, 2048, 16, 1, 256), (3, 77, 16, 1, 256), (4, 2080, 32, 8, 160)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -120,6 +124,59 @@ def test_decode_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     out = decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
     assert decode_attention.launches == n + 1
+    ref = decode_attention_ref(q, k, v, valid)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _holes(rng, B, S):
+    """Masks that are not prefixes: row 0 random holes, row 1 no valid key
+    (the uniform average), row 2 only its last key, the rest holes."""
+    valid = rng.random((B, S)) < 0.35
+    valid[1] = False
+    valid[2] = False
+    valid[2, -1] = True
+    return valid
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 160, 256])
+@pytest.mark.parametrize("G", [1, 4, 7, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_masks_groups_and_head_dims(cuda_device, hd, G,
+                                                  dtype):
+    """Every head dim and GQA group (32: two groups of 16 rows) over 2 KV
+    heads and 300 keys (not a whole number of 64-key tiles), with masks
+    that are not prefixes, a row with no valid key and a row whose only
+    valid key is its last."""
+    B, S, KV = 4, 300, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(hd * 41 + G)
+    q = _randn(gen, (B, 1, G * KV, hd), dtype, cuda_device)
+    k = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    v = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    valid = torch.from_numpy(_holes(np.random.default_rng(hd + G), B,
+                                    S)).to(cuda_device)
+    out = decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q, k, v, valid)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(3, 1, 28, 4, 128),
+                                         (64, 300, 28, 4, 128),
+                                         (64, 80, 16, 1, 256)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_one_key_and_many_rows(cuda_device, B, S, H, KV, hd,
+                                             dtype):
+    """S = 1 (one key, valid or not), and B = 64 (one split a row)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + S)
+    q = _randn(gen, (B, 1, H, hd), dtype, cuda_device)
+    k = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    v = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    valid = np.ones((B, S), bool) if S == 1 else _holes(
+        np.random.default_rng(B), B, S)
+    valid[0] = False
+    valid = torch.from_numpy(valid).to(cuda_device)
+    out = decode_attention(q, k, v, valid)
     ref = decode_attention_ref(q, k, v, valid)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
@@ -158,16 +215,19 @@ def _to_cpu(tree):
     return tree_map(lambda t: t.cpu(), tree)
 
 
-def test_engine_on_card_matches_cpu_forward(cuda_device):
+@pytest.mark.parametrize("arch,head_dim", [("qwen2_5_7b", 64),
+                                           ("stablelm_12b", 160)])
+def test_engine_on_card_matches_cpu_forward(cuda_device, arch, head_dim):
     """Serve a reduced model on the card (both kernels run), then score the
-    sampled tokens with a CPU forward over the same weights (fp32)."""
+    sampled tokens with a CPU forward over the same weights (fp32).
+    StableLM-2-12B keeps its head dim of 160."""
     from repro_torch.engines.continuous_batching import \
         ContinuousBatchingEngine
     from repro_torch.models import forward, init_params
 
-    cfg = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               vocab_size=ByteTokenizer.vocab_size,
-                              compute_dtype="float32")
+                              head_dim=head_dim, compute_dtype="float32")
     params = init_params(0, cfg, device=cuda_device)
     eng = ContinuousBatchingEngine(cfg, num_slots=2, max_len=64,
                                    max_new_tokens=6, eos_id=-1,

@@ -190,8 +190,9 @@ def test_associative_scan_matches_sequential_scan():
     """The training route's scan against the plain sequential one, at a
     length that is not a power of two and with a up to 0.999."""
     a, b = map(torch.from_numpy, _scan_inputs(2, 100, 24, 9))
-    _close(trglru.associative_scan(a, b), rglru_scan_ref(a, b).numpy(),
-           SCAN_TOL * 10)
+    prod, h = trglru.associative_scan(a, b)
+    _close(h, rglru_scan_ref(a, b).numpy(), SCAN_TOL * 10)
+    _close(prod, torch.cumprod(a.double(), dim=1).numpy(), SCAN_TOL)
 
 
 def test_rglru_decode_matches_reference_and_keeps_fp32_state():

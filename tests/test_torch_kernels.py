@@ -49,6 +49,8 @@ FLASH_SHAPES = [
     (1, 256, 8, 1, 32),       # MQA
     (2, 128, 4, 4, 128),      # 128-wide heads
     (2, 100, 4, 2, 64),       # ragged S
+    (1, 128, 8, 2, 160),      # StableLM-2-12B's hd 160, its group of 4
+    (2, 100, 4, 1, 160),      # hd 160, ragged S
 ]
 
 
@@ -108,6 +110,7 @@ def _bf16_kernel_numerics(q, k, v, window, block_k):
     (1, 256, 8, 2, 32, 64, 128),     # GQA 4:1 with a window
     (2, 100, 4, 2, 64, 32, 128),     # ragged S with a window
     (1, 96, 16, 1, 256, 32, 32),     # RecurrentGemma's hd 256, 32-key tiles
+    (1, 128, 8, 2, 160, 0, 64),      # hd 160 (run at 192), 64-key tiles
 ])
 def test_bf16_kernel_numerics_within_the_reference_bar(B, S, H, KV, hd,
                                                        window, block_k):
@@ -133,6 +136,8 @@ DECODE_SHAPES = [
     (1, 2048, 8, 8, 32),
     (3, 512, 4, 1, 128),
     (3, 100, 4, 2, 64),       # ragged S, one row with no valid key
+    (2, 300, 8, 2, 160),      # StableLM-2-12B's hd 160, its group of 4
+    (3, 100, 32, 8, 160),     # its heads, ragged S, a row with no key
 ]
 
 
@@ -169,15 +174,68 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
                                        (1, 1, 4, 4), (3, 100, 4, 1),
                                        (64, 8, 28, 4), (1, 524288, 32, 8),
                                        (2, 777, 64, 2)])
-def test_decode_splits_cover_s_with_no_empty_split(monkeypatch, B, S, H,
-                                                   KVH):
-    """The S splits the wrapper hands the CUDA entry: every split holds at
-    least one key, together they cover S, and they fill about two blocks
-    per SM where S allows (the entry refuses anything else)."""
+def test_decode_splits_cover_s_with_no_empty_split(B, S, H, KVH):
+    """The S splits the wrapper hands the CUDA entry: at most one cluster
+    of MAX_SPLITS blocks per (batch, KV head, group of 16 heads), cut at
+    whole tiles, every split holding at least one key, together covering
+    S, and each as short as keeping the blocks within two per SM allows
+    (the entry refuses anything else)."""
     from repro_torch.kernels.decode_attention import ops
-    monkeypatch.setattr(ops, "_num_sms", lambda index: 132)
-    nsplit, chunk = ops._splits(torch.device("cpu"), B, S, H, KVH)
-    assert nsplit >= 1 and chunk >= 1
+    n_sm = 132
+    nsplit, chunk = ops._splits(n_sm, B, S, H, KVH)
+    assert 1 <= nsplit <= ops.MAX_SPLITS and chunk % ops.TILE == 0
     assert (nsplit - 1) * chunk < S <= nsplit * chunk
-    blocks = B * KVH * -(-(H // KVH) // ops.GMAX)
-    assert nsplit == 1 or blocks * (nsplit - 1) < 2 * 132
+    blocks = B * KVH * -(-(H // KVH) // ops.GROUP)
+    assert nsplit == 1 or blocks * nsplit <= 2 * n_sm
+    # no block takes a tile more than the split bound forces
+    most = max(1, min(ops.MAX_SPLITS, 2 * n_sm // blocks))
+    assert chunk == ops.TILE or (chunk - ops.TILE) * most < S
+
+
+def _bf16_decode_numerics(q, k, v, valid, keys=16):
+    """What the CUDA kernel computes for bf16 inputs, on the CPU: each
+    warp's 16 keys an online-softmax state in base 2 (masked keys weigh 0
+    from the mask), P rounded to bf16 before P V, the states merged at
+    the end; a row with no valid key the uniform average of V."""
+    B, _, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // KVH, dim=2)
+    v = v.float().repeat_interleave(H // KVH, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), k) \
+        * hd ** -0.5 * 1.4426950408889634
+    ok = valid[:, None, :].expand(B, H, S)
+    pad = -S % keys
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(B, H, -1, keys)
+    ok = torch.nn.functional.pad(ok, (0, pad)).reshape(B, H, -1, keys)
+    vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
+        B, -1, keys, H, hd)
+    m = torch.where(ok, s, torch.tensor(-1e30)).amax(-1)      # per state
+    p = torch.where(ok, torch.exp2(s - m[..., None]), torch.tensor(0.0))
+    l = p.sum(-1)
+    o = torch.einsum("bhck,bckhd->bhcd", p.bfloat16().float(), vv)
+    mx = m.amax(-1, keepdim=True)
+    f = torch.exp2(m - mx)
+    out = (o * f[..., None]).sum(2) / (l * f).sum(-1).clamp_min(1e-30)[
+        ..., None]
+    empty = ~valid.any(-1)
+    out[empty] = v[empty].mean(1)
+    return out[:, None].to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", DECODE_SHAPES)
+def test_bf16_decode_numerics_within_the_reference_bar(B, S, H, KV, hd):
+    """The bf16 decode kernel's departure (P rounded to bf16 before P V,
+    per 16-key state) held against the reference's Pallas kernel in
+    interpret mode on the same bf16 inputs and masks with holes, within
+    the bf16 bar 2e-2 + 2e-2 |ref|."""
+    rng = np.random.default_rng(S * 19 + hd)
+    x = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in x)
+    valid = rng.random((B, S)) < 0.4
+    valid[-1] = False                  # no valid key: uniform average
+    ref = decode_attention_kernel(qj, kj, vj, jnp.asarray(valid),
+                                  block_k=min(512, S), interpret=True)
+    out = _bf16_decode_numerics(qt, kt, vt, torch.from_numpy(valid))
+    assert out.dtype == torch.bfloat16 and out.shape == qt.shape
+    _close(out, ref, 2e-2)

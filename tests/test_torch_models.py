@@ -25,11 +25,22 @@ from repro_torch.models import (decode_step, forward, init_cache,
 from repro_torch.models.convert import params_from_reference
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+def _reduced(name, **kw):
+    return lambda: dataclasses.replace(
+        get_config(name).reduced(), vocab_size=ByteTokenizer.vocab_size,
+        **kw)
+
+
+# every dense GQA config, cut with ``reduced()``; StableLM-2-12B keeps its
+# head dim of 160 (``reduced()`` sets 64), the width that needs the
+# kernels' hd-160 routes
 CFGS = {
     "tiny": lambda: tiny_cfg(),
-    "qwen2_5_7b_reduced": lambda: dataclasses.replace(
-        get_config("qwen2_5_7b").reduced(),
-        vocab_size=ByteTokenizer.vocab_size),
+    "qwen2_5_7b_reduced": _reduced("qwen2_5_7b"),
+    "qwen2_5_32b_reduced": _reduced("qwen2_5_32b"),
+    "qwen1_5_32b_reduced": _reduced("qwen1_5_32b"),
+    "minicpm_2b_reduced": _reduced("minicpm_2b"),
+    "stablelm_12b_reduced": _reduced("stablelm_12b", head_dim=160),
 }
 
 
@@ -79,6 +90,10 @@ def test_forward_and_prefill_cache_match_reference(name, compute_dtype):
     ("qwen2_5_7b_reduced", "float32", False),
     ("qwen2_5_7b_reduced", "bfloat16", False),
     ("tiny", "float32", True),       # ring cache shorter than the sequence
+    ("stablelm_12b_reduced", "float32", False),
+    ("stablelm_12b_reduced", "bfloat16", False),
+    ("qwen2_5_32b_reduced", "float32", False),
+    ("minicpm_2b_reduced", "float32", False),
 ])
 def test_stepwise_decode_matches_reference(name, compute_dtype, ring):
     ref_cfg, ref_params, cfg, params = _setup(name, compute_dtype)

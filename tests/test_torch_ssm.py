@@ -6,10 +6,10 @@ one GRPO gradient step; ``Trainer.fit``; and the refusals.
 
 Params come from the reference (``models/convert.py``) on a reduced
 ``falcon_mamba_7b`` (2 layers, d_model 256, d_inner 512, N 16, dt_rank
-16, byte vocab). fp32 unless noted. The port's scan is a sequential sum
-like the reference's oracle; the Pallas kernel and the reference's plain
-route scan associatively, so against them the order of the products
-differs."""
+16, byte vocab). fp32 unless noted. The port's plain ``mamba_scan`` is a
+sequential sum like the reference's oracle, so against the Pallas kernel
+the order of the products differs; the port's training routes scan in log
+depth, as the reference's do."""
 import dataclasses
 import functools
 import subprocess
@@ -44,6 +44,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models.convert import (params_from_reference,
                                         params_to_reference)
 from repro_torch.rl.grpo import GRPOConfig, grpo_grad_step
+from repro_torch.tree import tree_map
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 # fp32: the same sums, in another order (sequential here, associative in
@@ -164,6 +165,51 @@ def test_mamba_full_routes_match_reference(route):
     if route != "kernel":     # the training routes are differentiable
         got.sum().backward()
         assert float(xt.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("route", ["chunked", "plain"])
+def test_mamba_full_training_routes_grads_match_jax(route):
+    """The two training routes scan in log depth, as the reference's do:
+    outputs and the gradients of a weighted sum with respect to the input
+    and every parameter of the block, against ``jax.grad`` of the
+    reference's route on the same numbers, within 1e-4 relative (chunk 4
+    of S=12, so the carry crosses two chunk edges)."""
+    ref_cfg, ref_params, cfg, params = _setup()
+    chunk = 4 if route == "chunked" else 0
+    pj = jax.tree.map(lambda a: a[0], ref_params["blocks"]["mamba"])
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+
+    def loss_j(p, xx):
+        y = jssm.mamba_full(p, xx, ref_cfg, chunk=chunk)
+        return jnp.sum(y * w), y
+    (_, want), (gp_j, gx_j) = jax.value_and_grad(
+        loss_j, argnums=(0, 1), has_aux=True)(pj, jnp.asarray(x))
+
+    pt = tree_map(lambda t: t.clone().requires_grad_(),
+                  _layer0(params["blocks"]["mamba"]))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tssm.mamba_full(pt, xt, cfg, chunk=chunk)
+    (got * torch.from_numpy(w)).sum().backward()
+    _close(got, want, FP32_TOL)
+
+    def rel(a, b):
+        b = np.asarray(b, np.float64)
+        return np.linalg.norm(a.detach().numpy() - b) / max(
+            np.linalg.norm(b), 1e-30)
+    assert rel(xt.grad, gx_j) < 1e-4
+    flat_t = _flat(pt)
+    for k, g in _flat(gp_j).items():
+        assert flat_t[k].grad is not None, k
+        assert rel(flat_t[k].grad, g) < 1e-4, k
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: tree}
 
 
 def test_mamba_decode_matches_reference_and_keeps_fp32_state():
