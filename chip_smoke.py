@@ -11,7 +11,9 @@ which raises on failure:
    from ``src/repro_torch/csrc`` (build seconds printed), and the
    attention kernels' registers, spills and tensor-core/FFMA counts from
    the ptxas log and the SASS (``flash_build``: bf16 must run on HGMMA;
-   ``decode_build``: bf16 must run on HMMA);
+   ``decode_build``: bf16 must run on HMMA); ``loss_build``: the vocab
+   pass's registers and spills and the clusters of 1-8 blocks the card
+   holds at once;
 2. each attention kernel against its plain PyTorch version at the serving
    path's shapes (Qwen2.5-7B's heads, and StableLM-2-12B's 32/8 heads at
    hd 160), in bf16 and fp32, with its time through the wrapper beside
@@ -37,7 +39,9 @@ which raises on failure:
    at 256,000 (the trainer's rows) and at the byte vocab 259 (rows off the
    16-byte grid), bf16 and fp32, timed beside the plain versions, a
    one-call ``torch.log_softmax``/``torch.softmax`` yardstick and the
-   card's bound;
+   card's bound; the two forward kernels also through their C entries
+   alone, with their device time from ``torch.profiler`` and the blocks a
+   row their entry chose (``nsplit``, held to the wrapper's mirror);
 8. one GRPO micro-batch of full-width Qwen2.5-7B cut to 2 layers, through
    the kernels and through the plain loss, in bf16 and fp32 compute: loss,
    stats and every parameter's gradient agree, and the attention weights
@@ -222,19 +226,26 @@ def _check(name, dtype, shape, out, ref):
 
 
 def _device_ms(torch, fn, arg_sets, calls, name):
-    """Device time per call of the kernels whose names hold ``name``,
-    from ``torch.profiler``'s kernel events over ``calls`` calls cycling
-    through ``arg_sets`` (the calls' host time is not in it)."""
+    """Device time per launch of the kernel whose name holds ``name`` (one
+    a call), from ``torch.profiler``'s kernel events over ``calls`` calls
+    cycling through ``arg_sets`` (the calls' host time is not in it). The
+    mean is over the events the trace holds: a trace may miss some of a
+    window's launches, or all of them, and then the window is taken
+    again (at most three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(*arg_sets[i % len(arg_sets)])
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    return us / calls / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        n = sum(e.count for e in events)
+        if n:
+            return sum(e.self_device_time_total for e in events) / n / 1e3
+    raise AssertionError(f"profiler saw no {name} kernel in three windows")
 
 
 def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
@@ -338,14 +349,12 @@ def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
         bound_ms=bound, bound_by=by)
 
 
-def _build_report(source, instance, tensor_op):
+def _ptxas_report(source, instance):
     """Registers, spills and serialization notes per instantiation of the
-    kernels of ``source``, from the ptxas log of this run's build, and
-    their tensor-core (``tensor_op``) and FP32-core (FFMA) instructions
-    from the SASS; ``instance(mangled)`` names an instantiation or is None
-    for a kernel the report skips."""
+    kernels of ``source``, from the ptxas log of this run's build;
+    ``instance(mangled)`` names an instantiation or is None for a kernel
+    the report skips."""
     import re
-    import shutil
 
     from repro_torch.kernels import _build
     log = (_build.BUILD_DIR / f"{source}.log").read_text().splitlines()
@@ -366,6 +375,17 @@ def _build_report(source, instance, tensor_op):
         nums["serialized"] = any("serialized" in x and mangled in x
                                  for x in log)
         report[instance(mangled)] = nums
+    return report
+
+
+def _build_report(source, instance, tensor_op):
+    """``_ptxas_report`` and each instantiation's tensor-core
+    (``tensor_op``) and FP32-core (FFMA) instructions from the SASS."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+    report = _ptxas_report(source, instance)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build._lib_path(source))],
                           capture_output=True, text=True, check=True).stdout
@@ -404,6 +424,32 @@ def decode_build_report():
         "decode_attention",
         lambda m: ("bf16" if "bfloat16" in m else "fp32") + "_hd" + _hd(m)
         if "decode_kernel" in m else None, "HMMA")
+
+
+def loss_build_report():
+    """The vocab-pass kernels (``grpo_logprob``, ``fused_rl_loss_fwd``) per
+    instantiation: registers and spills from the ptxas log, and the
+    clusters of 1, 2, 4 and 8 blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises if a split size does not
+    fit or the pass spills."""
+    from repro_torch.kernels import _build
+    report = {}
+    for source, name, entry in (
+            ("grpo_logprob", "grpo_logprob_kernel", "grpo_logprob_clusters"),
+            ("fused_rl_loss", "fwd_kernel", "fused_rl_loss_fwd_clusters")):
+        rows = _ptxas_report(source, lambda m, name=name: (
+            name + ("_bf16" if "bfloat16" in m else "_fp32"))
+            if name in m else None)
+        for inst, row in rows.items():
+            row["max_clusters"] = {
+                n: _build.kernel(entry)(n, int(inst.endswith("bf16")))
+                for n in (1, 2, 4, 8)}
+        report.update(rows)
+    bad = [n for n, r in report.items() if r.get("spill_stores")
+           or min(r["max_clusters"].values()) <= 0]
+    if bad or len(report) != 4:
+        raise AssertionError(f"vocab pass build: {report}")
+    return report
 
 
 def phase_kernels(torch, max_len, timed):
@@ -698,8 +744,14 @@ def phase_loss_kernels(torch, timed):
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
                                                    fused_rl_loss_fwd_ref)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.grpo_logprob import (grpo_logprob,
                                                   grpo_logprob_ref)
+    from repro_torch.kernels.grpo_logprob.ops import nsplit_for
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    g_entry = _build.kernel("grpo_logprob")
+    f_entry = _build.kernel("fused_rl_loss_fwd")
     V = 152_064
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows, out = [], {}
@@ -725,6 +777,24 @@ def phase_loss_kernels(torch, timed):
             sets = _copies(torch, (x, t, old, ref, adv, lse, xbar, dlp,
                                    g_ent))
             nv = N * VV
+            code = _build.DTYPE_CODES[dt]
+            # the split the C entries choose, held to the Python mirror
+            nsplit = _build.kernel("vocab_nsplit")(N, VV, code)
+            if nsplit != nsplit_for(n_sm, N, VV, e):
+                raise AssertionError(f"vocab_nsplit {N}x{VV}: {nsplit}, "
+                                     f"nsplit_for: "
+                                     f"{nsplit_for(n_sm, N, VV, e)}")
+            buf = torch.empty((6, N), dtype=torch.float32, device="cuda")
+            # the C entries alone (the main path's choice of split) and
+            # their kernels' names in the profiler
+            entries = {
+                "grpo_logprob": (lambda x, t, *r: g_entry(
+                    x.data_ptr(), t.data_ptr(), buf.data_ptr(), N, VV, 0,
+                    code, stream), "grpo_logprob_kernel"),
+                "fused_rl_loss_fwd": (lambda x, t, o, r, a, *_: f_entry(
+                    x.data_ptr(), t.data_ptr(), o.data_ptr(), r.data_ptr(),
+                    a.data_ptr(), buf.data_ptr(), N, VV, 0, 0.2, code,
+                    stream), "fwd_kernel")}
             cases = {
                 "grpo_logprob": (
                     err_lp, lambda x, t, *r: grpo_logprob(x, t),
@@ -748,18 +818,29 @@ def phase_loss_kernels(torch, timed):
             for name, (err, fn, plain, lib, nbytes, ops) in cases.items():
                 # fp32 arithmetic on the CUDA cores whatever the input type
                 bound, by = _bound(nbytes, ops, "float32")
+                # host time varies from call to call: many calls where a
+                # call is short, and the wrapper and the entry timed before
+                # the profiler's window, as scripts/vocab_pass_variants.py
+                # times them
+                iters = 20 if N >= 4096 else 200
                 row = dict(kernel=name, dtype=dtype, N=N, V=VV,
-                           max_abs_err=err,
-                           **({"max_err_over_limit": dx_share}
-                              if name == "fused_rl_loss_bwd" else {}),
-                           ms=_time_ms(torch, fn, sets, 20),
-                           plain_ms=_time_ms(torch, plain, sets, 5),
+                           max_abs_err=err, ms=_time_ms(torch, fn, sets,
+                                                        iters))
+                if name in entries:
+                    entry, kname = entries[name]
+                    row.update(
+                        nsplit=nsplit,
+                        entry_ms=_time_ms(torch, entry, sets, iters),
+                        device_ms=_device_ms(torch, fn, sets, 20, kname))
+                else:
+                    row["max_err_over_limit"] = dx_share
+                row.update(plain_ms=_time_ms(torch, plain, sets, 5),
                            library_ms=_time_ms(torch, lib, sets, 20),
                            bound_ms=bound, bound_by=by)
                 rows.append(row)
                 if (dtype, N, VV) == timed:
                     out[name] = row
-            del x, t, old, ref, adv, dlp, g_ent, sets, fo, lp, ent
+            del x, t, old, ref, adv, dlp, g_ent, sets, fo, lp, ent, buf
             torch.cuda.empty_cache()
     for row in rows:
         print("kernel_vs_plain", json.dumps(row))
@@ -1329,6 +1410,7 @@ def main():
     print(f"kernel build seconds {_build.build_seconds:.3f}")
     print("flash_build", json.dumps(flash_build_report()))
     print("decode_build", json.dumps(decode_build_report()))
+    print("loss_build", json.dumps(loss_build_report()))
 
     cfg = get_config("qwen2_5_7b")
     prompts = make_prompts(SEED)

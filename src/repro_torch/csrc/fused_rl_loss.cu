@@ -3,11 +3,13 @@
 //
 // Replaces the Pallas kernels fused_rl_loss_fwd_kernel (_fwd_kernel) and
 // fused_rl_loss_bwd_kernel (_bwd_kernel) in
-// src/repro/kernels/fused_rl_loss/fused_rl_loss.py.
+// src/repro/kernels/fused_rl_loss/fused_rl_loss.py:145 and :178.
 //
-// fused_rl_loss_fwd: one CTA per row streams the row once (row_stats.cuh)
-// and its thread 0 finishes the per-token epilogue in registers, with
-// x_t read directly:
+// fused_rl_loss_fwd: the row's blocks, one cluster, stream it once
+// (vocab_pass.cuh, shared with grpo_logprob; the target logit is picked
+// from the tile that holds it) and the lanes of rank 0's first warp finish
+// the per-token epilogue, one output each, from the row's old, ref and adv,
+// loaded before the pass:
 //
 //   lse = m + log(max(l, 1e-30)), lp = x_t - lse, ent = lse - t / l,
 //   ratio = exp(lp - old), pl = -min(ratio*A, clip(ratio, 1-eps, 1+eps)*A),
@@ -21,12 +23,16 @@
 // written in the logits' dtype with one rounding. Its grid is (rows, chunks
 // of 4096 columns), so it fills the card at any N.
 //
-// Bound on this card: bytes. At N=4096, V=152,064 in bf16 the forward reads
-// 1.25 GB (0.37 ms at 3.35 TB/s) and the backward reads and writes 2.5 GB
-// (0.74 ms). Both use 16-byte vectors where a row allows and scalar heads
-// and tails where it does not (rows of V=259 in bf16 start at 518-byte
-// offsets), so any V works with no padding and no fallback.
-#include "row_stats.cuh"
+// Bound on this card: bytes. At N=316, V=65,024 in bf16 (a Falcon-Mamba-7B
+// trainer micro-batch) the forward reads 41 MB, 0.0123 ms at 3.35 TB/s; at
+// N=4096, V=152,064 it reads 1.25 GB (0.37 ms) and the backward reads and
+// writes 2.5 GB (0.74 ms). With few rows the forward splits each row over
+// up to 8 blocks of a cluster, so every SM has blocks and bytes in flight;
+// at N=4096 a row is one block. Both passes use 16-byte vectors where a row
+// allows and scalar heads and tails where it does not (rows of V=259 in
+// bf16 start at 518-byte offsets), so any V works with no padding and no
+// fallback.
+#include "vocab_pass.cuh"
 
 namespace repro_torch {
 namespace {
@@ -40,31 +46,41 @@ __global__ void __launch_bounds__(ROW_THREADS)
                const int64_t* __restrict__ targets,
                const float* __restrict__ old_lp,
                const float* __restrict__ ref_lp,
-               const float* __restrict__ adv, float* __restrict__ lp_out,
-               float* __restrict__ ent_out, float* __restrict__ kl_out,
-               float* __restrict__ pl_out, float* __restrict__ ratio_out,
-               float* __restrict__ lse_out, int V, float clip_eps) {
-  const int row = blockIdx.x;
-  const T* x = logits + static_cast<size_t>(row) * V;
-  RowState s = row_stats(x, V);
-  if (threadIdx.x != 0) return;
+               const float* __restrict__ adv, float* __restrict__ out, int N,
+               int V, float clip_eps, int nsplit) {
+  const int row = blockIdx.x / nsplit, split = blockIdx.x % nsplit;
   const int64_t tgt = targets[row];
-  const float g = (tgt >= 0 && tgt < V) ? to_float_scalar(x[tgt]) : 0.f;
-  const float l = fmaxf(s.l, 1e-30f);
-  const float lse = s.m + logf(l);
-  const float lp = g - lse;
-  const float a = adv[row];
-  const float ratio = expf(lp - old_lp[row]);
+  float a = 0.f, old = 0.f, ref = 0.f;
+  if (split == 0 && threadIdx.x < 32) {   // in flight during the pass
+    a = adv[row];
+    old = old_lp[row];
+    ref = ref_lp[row];
+  }
+  RowPart p;
+  if (!vocab_pass(logits + static_cast<size_t>(row) * V, V, tgt, split,
+                  nsplit, p))
+    return;
+  // out-of-range targets pick 0, as the Pallas kernel's never-set g does
+  const int lane = threadIdx.x;
+  if (lane >= 6) return;
+  const float l = fmaxf(p.s.l, 1e-30f);
+  const float lse = p.s.m + logf(l);
+  const float lp = p.g - lse;
+  const float ratio = expf(lp - old);
   const float unclipped = ratio * a;
   const float clipped =
       fminf(fmaxf(ratio, 1.0f - clip_eps), 1.0f + clip_eps) * a;
-  const float d = ref_lp[row] - lp;
-  lp_out[row] = lp;
-  ent_out[row] = lse - s.t / l;
-  kl_out[row] = expf(d) - d - 1.0f;
-  pl_out[row] = -fminf(unclipped, clipped);
-  ratio_out[row] = ratio;
-  lse_out[row] = lse;
+  const float d = ref - lp;
+  float v;                    // lane k writes output k of (lp, ent, kl, pl,
+  switch (lane) {             // ratio, lse)
+    case 0: v = lp; break;
+    case 1: v = lse - p.s.t / l; break;
+    case 2: v = expf(d) - d - 1.0f; break;
+    case 3: v = -fminf(unclipped, clipped); break;
+    case 4: v = ratio; break;
+    default: v = lse; break;
+  }
+  out[lane * N + row] = v;
 }
 
 template <typename T> struct Pack;
@@ -126,17 +142,16 @@ __global__ void __launch_bounds__(BWD_THREADS)
 }
 
 template <typename T>
-void launch_fwd(const void* logits, const void* targets, const void* old_lp,
-                const void* ref_lp, const void* adv, void* lp, void* ent,
-                void* kl, void* pl, void* ratio, void* lse, int N, int V,
-                float clip_eps, cudaStream_t st) {
-  fwd_kernel<T><<<N, ROW_THREADS, 0, st>>>(
-      static_cast<const T*>(logits), static_cast<const int64_t*>(targets),
-      static_cast<const float*>(old_lp), static_cast<const float*>(ref_lp),
-      static_cast<const float*>(adv), static_cast<float*>(lp),
-      static_cast<float*>(ent), static_cast<float*>(kl),
-      static_cast<float*>(pl), static_cast<float*>(ratio),
-      static_cast<float*>(lse), V, clip_eps);
+int launch_fwd(const void* logits, const void* targets, const void* old_lp,
+               const void* ref_lp, const void* adv, void* out, int N, int V,
+               int nsplit, float clip_eps, cudaStream_t st) {
+  return launch_rows(fwd_kernel<T>, N, V, sizeof(T), nsplit, st,
+                     static_cast<const T*>(logits),
+                     static_cast<const int64_t*>(targets),
+                     static_cast<const float*>(old_lp),
+                     static_cast<const float*>(ref_lp),
+                     static_cast<const float*>(adv), static_cast<float*>(out),
+                     N, V, clip_eps);
 }
 
 template <typename T>
@@ -156,26 +171,33 @@ void launch_bwd(const void* logits, const void* targets, const void* lse,
 
 using namespace repro_torch;
 
-// dtype: 0 = float32, 1 = bfloat16 (the logits'; the (N,) vectors are
-// float32, targets int64). Each entry returns cudaGetLastError() after its
-// launch (cudaErrorInvalidValue for a shape or dtype it does not take).
+// out is one (6, N) float32 buffer: lp, ent, kl, pl, ratio, lse. nsplit:
+// blocks a row (1, 2, 4 or 8), 0 for the entry's own choice (vocab_nsplit
+// in grpo_logprob.cu). dtype: 0 = float32, 1 = bfloat16 (the logits'; the
+// (N,) vectors are float32, targets int64). Each entry returns the CUDA
+// error of its launch (cudaErrorInvalidValue for a shape, split or dtype
+// it does not take).
 extern "C" int fused_rl_loss_fwd(const void* logits, const void* targets,
                                  const void* old_lp, const void* ref_lp,
-                                 const void* adv, void* lp, void* ent,
-                                 void* kl, void* pl, void* ratio, void* lse,
-                                 int N, int V, float clip_eps, int dtype,
+                                 const void* adv, void* out, int N, int V,
+                                 int nsplit, float clip_eps, int dtype,
                                  void* stream) {
   if (N <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_fwd<float>(logits, targets, old_lp, ref_lp, adv, lp, ent, kl, pl,
-                      ratio, lse, N, V, clip_eps, st);
-  else if (dtype == 1)
-    launch_fwd<__nv_bfloat16>(logits, targets, old_lp, ref_lp, adv, lp, ent,
-                              kl, pl, ratio, lse, N, V, clip_eps, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_fwd<float>(logits, targets, old_lp, ref_lp, adv, out, N,
+                             V, nsplit, clip_eps, st);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(logits, targets, old_lp, ref_lp, adv,
+                                     out, N, V, nsplit, clip_eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Clusters of nsplit forward blocks the card holds at once, or minus a
+// CUDA error.
+extern "C" int fused_rl_loss_fwd_clusters(int nsplit, int dtype) {
+  return dtype == 0 ? max_clusters(fwd_kernel<float>, nsplit)
+                    : max_clusters(fwd_kernel<__nv_bfloat16>, nsplit);
 }
 
 extern "C" int fused_rl_loss_bwd(const void* logits, const void* targets,

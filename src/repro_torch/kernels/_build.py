@@ -28,8 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# C signatures by source, then entry: every entry returns
-# cudaGetLastError() after its launch. dtype: 0 = float32, 1 = bfloat16.
+# C signatures by source, then entry: every entry that launches returns
+# the launch's CUDA error (0 for none), every entry an int. dtype: 0 =
+# float32, 1 = bfloat16.
 SIGNATURES = {
     "decode_attention": {
         # q, k, v, valid, out, B, S, H, KVH, hd, nsplit, chunk, dtype,
@@ -41,13 +42,19 @@ SIGNATURES = {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P]},
     "grpo_logprob": {
-        # logits, targets, lp, ent, N, V, dtype, stream
-        "grpo_logprob": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        # logits, targets, out (2, N), N, V, nsplit (0: the entry's
+        # choice), dtype, stream
+        "grpo_logprob": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # N, V, dtype -> the blocks a row both vocab entries choose
+        "vocab_nsplit": [_I, _I, _I],
+        # nsplit, dtype -> clusters the card holds at once
+        "grpo_logprob_clusters": [_I, _I]},
     "fused_rl_loss": {
-        # logits, targets, old, ref, adv, lp, ent, kl, pl, ratio, lse, N, V,
+        # logits, targets, old, ref, adv, out (6, N), N, V, nsplit,
         # clip_eps, dtype, stream
-        "fused_rl_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _F, _I, _P],
+        "fused_rl_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                              _P],
+        "fused_rl_loss_fwd_clusters": [_I, _I],
         # logits, targets, lse, xbar, dlp, g_ent, dx, N, V, dtype, stream
         "fused_rl_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "mamba_scan": {
@@ -150,17 +157,27 @@ def on_cpu(*tensors) -> bool:
 def require_no_grad(name: str, *tensors) -> None:
     """Raise when autograd would record a kernel that has no backward: a
     gradient must never go missing silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward, and autograd is "
-            "recording inputs that require grad; call it under "
-            "torch.no_grad(), or differentiate the plain route")
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward, and autograd is "
+                "recording inputs that require grad; call it under "
+                "torch.no_grad(), or differentiate the plain route")
 
 
 def check(name: str, err: int) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the kernels' entries
+    take it (a ``cudaStream_t``), without building a ``torch.cuda.Stream``
+    (the getter PyTorch's own generated kernels use)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -172,6 +189,22 @@ def aligned(t):
     where ``t`` is not one already)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kernel_inputs(name: str, *tensors):
+    """``tensors`` as the kernels take them: contiguous on 16-byte aligned
+    bases (a copy only where one is not), all on one CUDA device, else
+    ValueError. A few attribute reads a tensor, for wrappers whose host
+    time is most of a call."""
+    index = tensors[0].get_device()          # -1 on the CPU
+    out = []
+    for t in tensors:
+        if t.get_device() != index or index < 0:
+            raise ValueError(f"{name}: inputs must share one CUDA device "
+                             f"(got {[str(x.device) for x in tensors]})")
+        out.append(t if t.is_contiguous() and not t.data_ptr() % 16
+                   else aligned(t))
+    return out
 
 
 def check_cuda_inputs(name: str, *tensors) -> None:

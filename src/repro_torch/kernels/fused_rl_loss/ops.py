@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_rl_loss.ref import (fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd_ref)
+from repro_torch.kernels.grpo_logprob.ops import rows_input
 
 
 def _check(name, logits, *rows):
@@ -42,29 +43,36 @@ def _f32(t):
 
 
 def fused_rl_loss_fwd(logits, targets, old_logprob, ref_logprob, advantage,
-                      *, clip_eps=0.2):
+                      *, clip_eps=0.2, nsplit=0):
     """(N, V) logits + four (N,) vectors -> (lp, ent, kl, pl, ratio, lse),
-    each (N,) float32."""
+    each (N,) float32, the rows of one (6, N) buffer. ``nsplit`` forces the
+    blocks a row (1, 2, 4, 8); 0 leaves the choice to the kernel's entry
+    (``grpo_logprob.ops.nsplit_for``). On the CUDA path nothing is
+    converted or copied that the main path's inputs (int64 targets,
+    contiguous float32 vectors) do not need."""
     args = (logits, targets, old_logprob, ref_logprob, advantage)
     if _build.on_cpu(*args):
         return fused_rl_loss_fwd_ref(*args, clip_eps=clip_eps)
     _build.require_no_grad("fused_rl_loss_fwd", logits, old_logprob,
                            ref_logprob, advantage)
-    _check("fused_rl_loss_fwd", *args)
-    x = _build.aligned(logits)
-    tg = _build.aligned(targets.to(torch.int64))
-    old, ref, adv = (_f32(t) for t in args[2:])
-    _build.check_cuda_inputs("fused_rl_loss_fwd", x, tg, old, ref, adv)
+    x, tg = rows_input("fused_rl_loss_fwd", logits, targets)
     N, V = x.shape
-    outs = torch.empty((6, N), dtype=torch.float32, device=x.device)
-    err = _build.kernel("fused_rl_loss_fwd")(
+    vecs = []
+    for t in args[2:]:
+        if t.shape != (N,):
+            raise ValueError(f"fused_rl_loss_fwd: unsupported shapes logits="
+                             f"{tuple(x.shape)} rows="
+                             f"{[tuple(r.shape) for r in args[1:]]}")
+        vecs.append(t if t.dtype == torch.float32 else t.float())
+    x, tg, old, ref, adv = _build.kernel_inputs("fused_rl_loss_fwd", x, tg,
+                                                *vecs)
+    out = torch.empty((6, N), dtype=torch.float32, device=x.device)
+    _build.check("fused_rl_loss_fwd", _build.kernel("fused_rl_loss_fwd")(
         x.data_ptr(), tg.data_ptr(), old.data_ptr(), ref.data_ptr(),
-        adv.data_ptr(), *(o.data_ptr() for o in outs), N, V,
-        float(clip_eps), _build.DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("fused_rl_loss_fwd", err)
+        adv.data_ptr(), out.data_ptr(), N, V, nsplit, clip_eps,
+        _build.DTYPE_CODES[x.dtype], _build.raw_stream(x.get_device())))
     _build.count_launch(fused_rl_loss_fwd)
-    return tuple(outs)
+    return out.unbind(0)
 
 
 def fused_rl_loss_bwd(logits, targets, lse, xbar, dlp, g_ent):

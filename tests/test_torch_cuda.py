@@ -24,7 +24,10 @@ from repro_torch.kernels.fused_rl_loss import (fused_rl_loss,
                                                fused_rl_loss_fwd,
                                                fused_rl_loss_fwd_ref,
                                                fused_rl_loss_oracle)
+from repro_torch.kernels.fused_rl_loss.ref import \
+    _epilogue as fused_epilogue
 from repro_torch.kernels.grpo_logprob import grpo_logprob, grpo_logprob_ref
+from repro_torch.kernels.grpo_logprob.ref import split_bounds
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
                                             scan_from)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
@@ -257,6 +260,8 @@ def test_engine_on_card_matches_cpu_forward(cuda_device, arch, head_dim):
 # 2053.
 VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
                 (316, 65024), (4096, 65024), (316, 256000)]
+# blocks a row in the vocab pass: 0 leaves the choice to the C entry
+VOCAB_SPLITS = [0, 1, 2, 4, 8]
 
 
 def _loss_inputs(gen, N, V, dtype, device):
@@ -277,18 +282,21 @@ def _assert_close_rel(out, ref, tol):
 
 @pytest.mark.parametrize("N,V", VOCAB_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_vocab_kernels_match_plain(cuda_device, N, V, dtype):
-    """grpo_logprob and fused_rl_loss forward: the (N,) fp32 outputs within
-    1e-4 + 1e-4*|ref| in both input dtypes (bf16 converts to fp32 exactly
-    on load); backward dx within 1e-4 (fp32) or 1e-2 (bf16, one rounding)
-    of each element, plus 1e-5 of its terms where they cancel
-    (``fused_rl_loss_bwd_tolerance``)."""
+@pytest.mark.parametrize("nsplit", VOCAB_SPLITS)
+def test_vocab_kernels_match_plain(cuda_device, N, V, dtype, nsplit):
+    """grpo_logprob and fused_rl_loss forward, at the entry's own split
+    (0) and at each forced one: the (N,) fp32 outputs within 1e-4 +
+    1e-4*|ref| in both input dtypes (bf16 converts to fp32 exactly on
+    load); backward dx from the forward's lse within 1e-4 (fp32) or 1e-2
+    (bf16, one rounding) of each element, plus 1e-5 of its terms where
+    they cancel (``fused_rl_loss_bwd_tolerance``). Each wrapper call counts
+    one launch."""
     gen = torch.Generator(device=cuda_device).manual_seed(N + V)
     x, t, old, ref, adv = _loss_inputs(gen, N, V, dtype, cuda_device)
     n = (grpo_logprob.launches, fused_rl_loss_fwd.launches,
          fused_rl_loss_bwd.launches)
-    lp, ent = grpo_logprob(x, t)
-    outs = fused_rl_loss_fwd(x, t, old, ref, adv)
+    lp, ent = grpo_logprob(x, t, nsplit=nsplit)
+    outs = fused_rl_loss_fwd(x, t, old, ref, adv, nsplit=nsplit)
     dlp = torch.randn(N, generator=gen, device=cuda_device)
     g_ent = torch.randn(N, generator=gen, device=cuda_device)
     dx = fused_rl_loss_bwd(x, t, outs[5], outs[5] - outs[1], dlp, g_ent)
@@ -305,6 +313,55 @@ def test_vocab_kernels_match_plain(cuda_device, N, V, dtype):
     limit = fused_rl_loss_bwd_tolerance(x, t, *stats, want, DX_RTOL[dtype])
     err = (dx.float() - want.float()).abs()
     assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def _edge_rows(x, V, nsplit):
+    """Per row of ``x``, a target next to one of the row's split
+    boundaries (from the row's own 16-byte head), column 0 and V-1, and
+    out-of-range ones; every third row gets its max in the first split.
+    Returns the (N,) int64 targets."""
+    vec = 16 // x.element_size()
+    picks = []
+    for r in range(x.shape[0]):
+        head = (-(x[r].data_ptr() % 16) % 16) // x.element_size()
+        cols = {0, V - 1, -1, V, V + 5}
+        for lo, hi in split_bounds(V, nsplit, vec, min(head, V)):
+            cols.update(c for c in (lo - 1, lo, hi - 1, hi) if 0 <= c < V)
+        cols = sorted(cols)
+        picks.append(cols[r % len(cols)])
+    x[::3, 0] = 40.0
+    return torch.tensor(picks, device=x.device)
+
+
+@pytest.mark.parametrize("V", [259, 2053])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nsplit", VOCAB_SPLITS)
+def test_vocab_kernels_edge_targets(cuda_device, V, dtype, nsplit):
+    """Both forward kernels with targets in column 0, in column V-1, on
+    every split boundary and out of range (the pick is 0: lp = -lse, as
+    the Pallas kernel's never-set g), and rows whose max lies in another
+    split than their target: within 1e-4 + 1e-4*|ref| of the plain
+    versions (out-of-range rows: lp = -lse and the epilogue on it)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(V + nsplit)
+    N = 48
+    x, _, old, ref, adv = _loss_inputs(gen, N, V, dtype, cuda_device)
+    t = _edge_rows(x, V, max(nsplit, 1))
+    inside = (t >= 0) & (t < V)
+    assert bool((~inside).any()) and bool(inside.any())
+    n = (grpo_logprob.launches, fused_rl_loss_fwd.launches)
+    lp, ent = grpo_logprob(x, t, nsplit=nsplit)
+    outs = fused_rl_loss_fwd(x, t, old, ref, adv, nsplit=nsplit)
+    torch.cuda.synchronize()
+    assert (grpo_logprob.launches, fused_rl_loss_fwd.launches) == \
+        (n[0] + 1, n[1] + 1)
+    safe = torch.where(inside, t, torch.zeros_like(t))
+    f = fused_rl_loss_fwd_ref(x, safe, old, ref, adv)
+    want_lp = torch.where(inside, f[0], -f[5])
+    _assert_close_rel(lp, want_lp, 1e-4)
+    _assert_close_rel(ent, f[1], 1e-4)
+    kl, pl, ratio = fused_epilogue(want_lp, old, ref, adv, 0.2)
+    for o, w in zip(outs, (want_lp, f[1], kl, pl, ratio, f[5])):
+        _assert_close_rel(o, w, 1e-4)
 
 
 @pytest.mark.parametrize("N,V", [(13, 259), (9, 2053)])

@@ -7,6 +7,8 @@ holds the CUDA kernels against the plain versions on the card.
 Tolerances: 2e-5 in fp32 and 2e-2 in bf16 on values, gradients within 1e-4
 relative in fp32 (the reference's own bars).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,10 @@ from repro_torch.kernels.fused_rl_loss import (fused_rl_loss,
                                                fused_rl_loss_fwd_ref,
                                                fused_rl_loss_oracle)
 from repro_torch.kernels.grpo_logprob import grpo_logprob, grpo_logprob_ref
+from repro_torch.kernels.grpo_logprob.ops import (MIN_SPLIT_BYTES,
+                                                  SPLIT_BLOCKS, nsplit_for)
+from repro_torch.kernels.grpo_logprob.ref import (grpo_logprob_split,
+                                                  split_bounds)
 from repro_torch.rl.loss import (clipped_policy_loss, fused_actor_loss,
                                  kl_penalty, token_logprobs, value_loss)
 
@@ -63,6 +69,80 @@ def test_grpo_logprob_plain_matches_jax_kernel(V, dtype):
                                  torch.from_numpy(t.reshape(-1)))
     assert torch.equal(lp2, lp.reshape(-1)) and torch.equal(
         ent2, ent.reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(V):
+    """Rows of V logits, their targets (column 0, V-1 and every column
+    next to a boundary of 2-8 splits, plus random ones) and the JAX
+    kernel's (lp, ent) on them in interpret mode."""
+    rng = np.random.default_rng(V + 7)
+    edges = {0, V - 1}
+    for nsplit in range(2, 9):
+        for head, vec in ((0, 8), (3, 8), (1, 4)):
+            for lo, hi in split_bounds(V, nsplit, vec, head):
+                edges.update(c for c in (lo - 1, lo, hi - 1, hi)
+                             if 0 <= c < V)
+    t = np.array(sorted(edges) + list(rng.integers(0, V, 8)))
+    x = (4 * rng.standard_normal((len(t), V))).astype(np.float32)
+    x[1::3, 0] = 40.0      # rows whose max lies in the first split
+    lp, ent = grpo_logprob_kernel(jnp.asarray(x), jnp.asarray(t, jnp.int32),
+                                  interpret=True)
+    return x, t, np.asarray(lp), np.asarray(ent)
+
+
+@pytest.mark.parametrize("V", [259, 2053])
+@pytest.mark.parametrize("nsplit", range(1, 9))
+@pytest.mark.parametrize("head,vec", [(0, 8), (3, 8), (1, 4)])
+def test_split_pass_matches_plain_and_jax_kernel(V, nsplit, head, vec):
+    """The kernels' vocab pass cut into 1-8 splits (16-byte vectors of 8
+    bf16 or 4 fp32 columns, after a head of 0-3 columns off the 16-byte
+    grid), each split's (m, l, t) merged with weights exp(m_i - M): within
+    2e-5 in fp32 of the plain one-pass version and of the Pallas kernel in
+    interpret mode, with targets on every split boundary and maxima in
+    another split than the target."""
+    x, t, lp_j, ent_j = _split_case(V)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(t)
+    lp, ent = grpo_logprob_split(xt, tt, nsplit, vec, head)
+    lp_r, ent_r = grpo_logprob_ref(xt, tt)
+    for out, want in ((lp, lp_r), (ent, ent_r), (lp, lp_j), (ent, ent_j)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=2e-5)
+    bounds = split_bounds(V, nsplit, vec, head)
+    assert bounds[0][0] == 0 and bounds[-1][1] == V
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+def test_split_pass_out_of_range_target_picks_zero():
+    """A target outside [0, V) adds no logit in any split (lp = -lse), as
+    the kernels and the Pallas kernel's never-set g do."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((3 * rng.standard_normal((3, 300)))
+                         .astype(np.float32))
+    lse = torch.logsumexp(x, -1)
+    for nsplit in (1, 3, 8):
+        lp, _ = grpo_logprob_split(x, torch.tensor([-1, 300, 10**6]), nsplit)
+        np.testing.assert_allclose(lp.numpy(), -lse.numpy(), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("N,V,esize,want", [
+    (316, 65_024, 2, 2), (316, 152_064, 2, 2), (316, 256_000, 2, 2),
+    (316, 65_024, 4, 2), (4096, 152_064, 2, 1), (4096, 65_024, 2, 1),
+    (7, 259, 2, 1), (7, 259, 4, 1), (5, 2053, 4, 1), (1, 256_000, 2, 8),
+    (40, 65_024, 2, 2), (40, 152_064, 2, 8)])
+def test_vocab_nsplit_choice(N, V, esize, want):
+    """The blocks a row the vocab entries choose on a 132-SM H100
+    (``nsplit_for`` mirrors ``choose_nsplit`` in ``csrc/vocab_pass.cuh``;
+    ``chip_smoke.py`` holds the two together on the card): the fewest of
+    1, 2, 4, 8 that give SPLIT_BLOCKS blocks an SM, each block keeping at
+    least MIN_SPLIT_BYTES of its row; 1 at 4096 rows and at the byte
+    vocab, more at the trainers' 316."""
+    s = nsplit_for(132, N, V, esize)
+    assert s == want
+    assert s == 1 or V * esize // s >= MIN_SPLIT_BYTES
+    assert s == 8 or N * s >= SPLIT_BLOCKS * 132 \
+        or V * esize // (2 * s) < MIN_SPLIT_BYTES
 
 
 def _fused_inputs(N, V, tie=False):
@@ -255,3 +335,48 @@ def test_kernels_without_backward_raise_under_grad(monkeypatch):
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention(q.detach(), q.detach(), q.detach())
     assert (flash_attention.launches, grpo_logprob.launches) == (n_f, n_g)
+
+
+def test_vocab_wrappers_hand_one_buffer_to_their_entries(monkeypatch):
+    """On the CUDA path (CPU tensors sent down it, the C entries recorded
+    instead of called) each wrapper passes its inputs as they are where
+    they already fit (int64 targets, float32 vectors: the same storage),
+    one output buffer, the forced ``nsplit`` (0 by default) and the
+    stream; its outputs are that buffer's rows, and one call counts one
+    launch."""
+    _as_if_on_card(monkeypatch)
+    calls = {}
+
+    def entry(name):
+        def record(*args):
+            calls[name] = args
+            return 0
+        return record
+    monkeypatch.setattr(_build, "kernel", entry)
+    monkeypatch.setattr(_build, "kernel_inputs", lambda name, *ts: ts)
+    monkeypatch.setattr(_build, "raw_stream", lambda index: 77)
+    N, V = 5, 259
+    x = torch.zeros((N, V), dtype=torch.bfloat16)
+    t = torch.zeros(N, dtype=torch.int64)
+    old, ref, adv = (torch.zeros(N) for _ in range(3))
+    n_g, n_f = grpo_logprob.launches, fused_rl_loss_fwd.launches
+    with torch.no_grad():
+        lp, ent = grpo_logprob(x, t, nsplit=4)
+        outs = fused_rl_loss_fwd(x, t, old, ref, adv, clip_eps=0.3)
+        grpo_logprob(x, t.int())
+    assert (grpo_logprob.launches, fused_rl_loss_fwd.launches) == \
+        (n_g + 2, n_f + 1)
+    g = calls["grpo_logprob"]
+    f = calls["fused_rl_loss_fwd"]
+    assert len(g) == len(_build.SIGNATURES["grpo_logprob"]["grpo_logprob"])
+    assert len(f) == len(
+        _build.SIGNATURES["fused_rl_loss"]["fused_rl_loss_fwd"])
+    assert g[0] == x.data_ptr() and g[1] != t.data_ptr()   # int32 -> int64
+    assert f[:5] == tuple(a.data_ptr() for a in (x, t, old, ref, adv))
+    assert f[6:] == (N, V, 0, 0.3, 1, 77)
+    base = f[5]
+    assert [o.data_ptr() for o in outs] == [base + 4 * N * k
+                                            for k in range(6)]
+    assert all(o.shape == (N,) and o.dtype == torch.float32 for o in outs)
+    assert lp.shape == ent.shape == (N,)
+    assert ent.data_ptr() - lp.data_ptr() == 4 * N
