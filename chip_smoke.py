@@ -52,10 +52,14 @@ which raises on failure:
    shares;
 10. a ``torch.profiler`` trace of one actor update (forward, loss,
     backward, AdamW): device time by kernel and the device's idle share;
-11. ``mamba_scan`` against its plain version in fp32 at the long prefill
-    (B=1, S=2048, D=8192, N=16), the trainer's reference-inference rows
-    (4 x 80) and two ragged shapes, timed beside the plain version and the
-    card's bound (no single PyTorch call computes a selective scan);
+11. ``mamba_scan`` against its plain version in fp32 at the trainer's
+    reference-inference rows (4 x 80, D=8192, N=16), one teacher-forced
+    forward (1 x 80), the long prefill (B=1, S=2048) and two ragged
+    shapes: each row gives the path its entry took (short or long, held
+    to the wrapper's mirror), its time through the wrapper and through
+    its C entry alone, its kernel's device time (``torch.profiler``), the
+    plain version's and the card's bound (no single PyTorch call computes
+    a selective scan);
 12. full-width Falcon-Mamba-7B (all 64 layers, vocab 65,024, random
     weights from a seed) served through the fixed engine: 4 requests,
     16 new tokens each;
@@ -73,10 +77,10 @@ which raises on failure:
     one of its actor updates timed (wall, peak memory) and traced (idle
     share), as for every trainer;
 17. ``rglru_scan`` against its plain version in fp32 at the trainer's
-    reference-inference rows (4 x 80 x 4096), a long prefill (B=1,
-    S=2048) and two ragged shapes, timed beside the plain version, its C
-    entry alone and the byte bound (no single PyTorch call computes the
-    recurrence); ``flash_attention`` (B=1, S=4096, window 2048, and the
+    reference-inference rows (4 x 80 x 4096), one teacher-forced forward
+    (1 x 80), a long prefill (B=1, S=2048) and two ragged shapes, each row
+    as in phase 11 with the byte bound (no single PyTorch call computes
+    the recurrence); ``flash_attention`` (B=1, S=4096, window 2048, and the
     trainer's 4 x 80 tokens at windows 2048 and 32) and
     ``decode_attention`` (rings of 2048, 80 and 32 keys, full and partly
     filled) at RecurrentGemma-9B's 16 query heads, 1 KV head and hd 256,
@@ -153,6 +157,11 @@ STABLELM_LAYERS = 40       # StableLM-2-12B's depth: all of it (48.5 GB
                            # of fp32 params once the others are freed)
 HYB_REF_ROWS = (4, 80, 4096)   # rglru_scan in the trainer's reference
                                # inference: 4 rows x 80 x rnn_width
+# the scans in one teacher-forced forward of phases 13, 19 and 21: one
+# sequence of at most FIXED_PROMPT_MAX + FIXED_NEW tokens
+SSM_TF_ROWS = (1, 80, 8192, 16)
+HYB_TF_ROWS = (1, 80, 4096)
+PATH_NAMES = {1: "short", 2: "long"}   # the scans' entries' paths
 RING_WINDOW = 32           # local window of the ring-wrap check
 QWEN_HEADS = (28, 4, 128)       # query heads, KV heads, head dim
 STABLELM_HEADS = (32, 8, 160)
@@ -227,25 +236,27 @@ def _check(name, dtype, shape, out, ref):
 
 def _device_ms(torch, fn, arg_sets, calls, name):
     """Device time per launch of the kernel whose name holds ``name`` (one
-    a call), from ``torch.profiler``'s kernel events over ``calls`` calls
-    cycling through ``arg_sets`` (the calls' host time is not in it). The
-    mean is over the events the trace holds: a trace may miss some of a
-    window's launches, or all of them, and then the window is taken
-    again (at most three times)."""
+    a call): the median duration of its kernel events in ``torch.profiler``
+    traces of ``calls`` calls cycling through ``arg_sets`` (the calls' host
+    time is not in it). A trace may miss some of a window's launches, or
+    all of them, or misreport a few, so windows are taken until they hold
+    ``calls`` events (at most four) and the median is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    times = []
+    for _ in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and name in e.key]
-        n = sum(e.count for e in events)
-        if n:
-            return sum(e.self_device_time_total for e in events) / n / 1e3
-    raise AssertionError(f"profiler saw no {name} kernel in three windows")
+        times += [e.self_device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(times) >= calls:
+            return sorted(times)[len(times) // 2] / 1e3
+    if times:
+        return sorted(times)[len(times) // 2] / 1e3
+    raise AssertionError(f"profiler saw no {name} kernel in four windows")
 
 
 def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
@@ -1066,47 +1077,146 @@ def profile_actor_update(torch, trainer):
         raise AssertionError(f"actor update: {out}")
 
 
+def _mamba_inputs(torch, gen, B, S, D, N):
+    """x, dt, A, and B and C as strided views of one projection output (a
+    row of 256 + 2N, as the model hands them over), in the model's ranges:
+    A = -exp(a_log) = -(1..N), dt near softplus(-4.6) = 0.01."""
+    dev = torch.device("cuda")
+    x = torch.randn((B, S, D), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((B, S, D), generator=gen, device=dev) - 4.6)
+    a = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+        D, N).contiguous()
+    dbc = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev)
+    return x, dt, a, dbc[..., 256:256 + N], dbc[..., 256 + N:]
+
+
+def _mamba_bound(B, S, D, N, sfu_per_s):
+    """The larger of the bytes (x, dt, y, B, C, A once) over the memory
+    rate and the B*S*D*N exponentials over the special-function units'
+    rate."""
+    t_bytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = B * S * D * N / sfu_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, sfu_ms=t_ops)
+
+
+def _rglru_inputs(torch, gen, B, S, W):
+    """a = u^r with u in [0.9, 0.999] (lambda's init) and r a sigmoid
+    gate, b = sqrt(1 - a^2) i x, as the model hands them over."""
+    dev = torch.device("cuda")
+
+    def randn():
+        return torch.randn((B, S, W), generator=gen, device=dev)
+    u = torch.empty(W, device=dev).uniform_(0.9, 0.999, generator=gen)
+    a = u ** torch.sigmoid(randn())
+    return a, torch.sqrt(1 - a * a) * torch.sigmoid(randn()) * randn()
+
+
+def _rglru_bound(B, S, W):
+    """Bytes: a and b read and h written once, 12 bytes an element (2
+    FLOPs an element are far below)."""
+    t_bytes = 3 * B * S * W * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _scan_iters(B, S):
+    """Calls a timing window: host time varies from call to call, so many
+    where a call is short."""
+    return 200 if B * S <= 1024 else 20
+
+
+def _scan_times(torch, wrapper, entry, sets, kname, iters):
+    """A scan's time through its wrapper and through its C entry alone, as
+    the main path calls them (under no_grad): CUDA events over back-to-back
+    calls, inputs cycled past L2. At the trainers' rows that is mostly the
+    host's issue rate, which varies from window to window, so each is the
+    median of three windows taken in turns. Beside them, its kernel's
+    device time (``torch.profiler``, the host's time not in it)."""
+    ms, entry_ms = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            ms.append(_time_ms(torch, wrapper, sets, iters))
+            entry_ms.append(_time_ms(torch, entry, sets, iters))
+        return dict(ms=sorted(ms)[1], entry_ms=sorted(entry_ms)[1],
+                    device_ms=_device_ms(torch, wrapper, sets, 20, kname))
+
+
+def _mamba_entry(torch, B, S, D, N, path=0):
+    """The C entry of ``mamba_scan`` alone as a call of the wrapper's
+    inputs, into one output; ``path`` 0 is the entry's choice."""
+    from repro_torch.kernels import _build
+    fn = _build.kernel("mamba_scan")
+    y = torch.empty((B, S, D), device="cuda")
+    stream = _build.raw_stream(torch.cuda.current_device())
+    return lambda x, dt, a, b, c: fn(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), y.data_ptr(), B, S, D, N, b.stride(0), b.stride(1),
+        c.stride(0), c.stride(1), path, stream)
+
+
+def _rglru_entry(torch, B, S, W, path=0):
+    """The C entry of ``rglru_scan`` alone, as ``_mamba_entry``."""
+    from repro_torch.kernels import _build
+    fn = _build.kernel("rglru_scan")
+    h = torch.empty((B, S, W), device="cuda")
+    stream = _build.raw_stream(torch.cuda.current_device())
+    return lambda a, b: fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S,
+                           W, path, stream)
+
+
+def _scan_path(name, mirror, *shape):
+    """The path (short or long) the C entry ``<name>_path`` takes at
+    ``shape``, held to the wrapper's mirror of its rule."""
+    from repro_torch.kernels import _build
+    took = _build.kernel(f"{name}_path")(*shape)
+    if took != mirror:
+        raise AssertionError(f"{name} {shape}: the entry takes path {took}, "
+                             f"the wrapper's mirror says {mirror}")
+    return PATH_NAMES[took]
+
+
 def phase_mamba_scan(torch, sm_clock_hz, timed):
     """``mamba_scan`` against its plain version in fp32, |err| <= 1e-4 +
     1e-4 |ref| (the sums run in another order); B and C are strided views
-    of one projection output, as the model hands them over. The bound is
-    the larger of the bytes over the memory rate and the B*S*D*N
-    exponentials over the special-function units' rate at the card's
-    maximum SM clock. Returns the row at the ``timed`` (B, S, D, N)."""
-    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2024)
+    of one projection output, as the model hands them over. Each row gives
+    the path the entry took, the wrapper's, the C entry's and the kernel's
+    device time, the plain version's, and the bound: the larger of the
+    bytes over the memory rate and the B*S*D*N exponentials over the
+    special-function units' rate at the card's maximum SM clock. Returns
+    the row at the ``timed`` (B, S, D, N)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
+                                                path_for)
+    gen = torch.Generator(device="cuda").manual_seed(2024)
     sfu_per_s = SFU_PER_SM_CLOCK * SMS * sm_clock_hz
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows, out = [], None
-    for B, S, D, N in ((1, SEQ_LEN_MAX, 8192, 16), SSM_REF_ROWS,
+    for B, S, D, N in (SSM_REF_ROWS, SSM_TF_ROWS, (1, SEQ_LEN_MAX, 8192, 16),
                        (2, 79, 8192, 16), (3, 130, 96, 8)):
-        # the model's ranges: A = -exp(a_log) = -(1..N), dt near
-        # softplus(-4.6) = 0.01
-        x = torch.randn((B, S, D), generator=gen, device=dev)
-        dt = torch.nn.functional.softplus(
-            0.5 * torch.randn((B, S, D), generator=gen, device=dev) - 4.6)
-        a = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
-            D, N).contiguous()
-        dbc = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev)
-        b, c = dbc[..., 256:256 + N], dbc[..., 256 + N:]
-        y = mamba_scan(x, dt, a, b, c)
-        err = _check("mamba_scan", "float32", (B, S, D, N), y,
-                     mamba_scan_ref(x, dt, a, b, c))
-        sets = _copies(torch, (x, dt, a, b, c))
-        nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = B * S * D * N / sfu_per_s * 1e3
+        ins = _mamba_inputs(torch, gen, B, S, D, N)
+        entry = _mamba_entry(torch, B, S, D, N)
+        _build.check("mamba_scan", entry(*ins))
         row = dict(kernel="mamba_scan", dtype="float32", B=B, S=S, D=D, N=N,
-                   max_abs_err=err,
-                   ms=_time_ms(torch, mamba_scan, sets, 20),
-                   plain_ms=_time_ms(torch, mamba_scan_ref, sets, 2),
-                   library_ms=None, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes_ms=t_bytes, sfu_ms=t_ops)
+                   path=_scan_path("mamba_scan", path_for(B, S, D, n_sm),
+                                   B, S, D, n_sm),
+                   max_abs_err=_check("mamba_scan", "float32", (B, S, D, N),
+                                      mamba_scan(*ins),
+                                      mamba_scan_ref(*ins)))
+        sets = _copies(torch, ins)
+        row.update(_scan_times(torch, mamba_scan, entry, sets, "mamba_scan",
+                               _scan_iters(B, S)))
+        row.update(plain_ms=_time_ms(torch, mamba_scan_ref, sets, 2),
+                   library_ms=None,
+                   **_mamba_bound(B, S, D, N, sfu_per_s))
         rows.append(row)
         if (B, S, D, N) == timed:
             out = row
-        del x, dt, a, dbc, b, c, y, sets
+        del ins, sets, entry
     for row in rows:
         print("kernel_vs_plain", json.dumps(row))
     torch.cuda.empty_cache()
@@ -1226,44 +1336,34 @@ def phase_fixed_serving(torch, cfg, smi, kernels):
 
 def phase_rglru_scan(torch, timed):
     """``rglru_scan`` against its plain version in fp32, |err| <= 1e-4 +
-    1e-4 |ref|, on inputs in the model's ranges: a = u^r with u in
-    [0.9, 0.999] (lambda's init) and r a sigmoid gate, b = sqrt(1 - a^2)
-    i x. Timed beside the plain version, the C entry called alone (the
-    wrapper's Python is a fixed cost at small shapes) and the byte bound.
+    1e-4 |ref|, on inputs in the model's ranges (``_rglru_inputs``). Each
+    row gives the path the entry took, the wrapper's, the C entry's and
+    the kernel's device time, the plain version's and the byte bound.
     Returns the row at the ``timed`` (B, S, W)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2025)
-    entry = _build.kernel("rglru_scan")
-    stream = torch.cuda.current_stream().cuda_stream
+    from repro_torch.kernels.rglru_scan import (path_for, rglru_scan,
+                                                rglru_scan_ref)
+    gen = torch.Generator(device="cuda").manual_seed(2025)
     rows, out = [], None
-    for B, S, W in (HYB_REF_ROWS, (1, SEQ_LEN_MAX, 4096), (3, 77, 1000),
-                    (2, 33, 4099)):
-        def randn():
-            return torch.randn((B, S, W), generator=gen, device=dev)
-        u = torch.empty(W, device=dev).uniform_(0.9, 0.999, generator=gen)
-        a = u ** torch.sigmoid(randn())
-        b = torch.sqrt(1 - a * a) * torch.sigmoid(randn()) * randn()
-        err = _check("rglru_scan", "float32", (B, S, W), rglru_scan(a, b),
-                     rglru_scan_ref(a, b))
-        sets = _copies(torch, (a, b))
-        h = torch.empty_like(a)
-        nbytes = 3 * B * S * W * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+    for B, S, W in (HYB_REF_ROWS, HYB_TF_ROWS, (1, SEQ_LEN_MAX, 4096),
+                    (3, 77, 1000), (2, 33, 4099)):
+        ins = _rglru_inputs(torch, gen, B, S, W)
+        entry = _rglru_entry(torch, B, S, W)
+        _build.check("rglru_scan", entry(*ins))
         row = dict(kernel="rglru_scan", dtype="float32", B=B, S=S, W=W,
-                   max_abs_err=err, ms=_time_ms(torch, rglru_scan, sets, 20),
-                   entry_ms=_time_ms(torch, lambda a, b: entry(
-                       a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
-                       stream), sets, 20),
-                   plain_ms=_time_ms(torch, rglru_scan_ref, sets, 2),
-                   library_ms=None, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+                   path=_scan_path("rglru_scan", path_for(S), S),
+                   max_abs_err=_check("rglru_scan", "float32", (B, S, W),
+                                      rglru_scan(*ins),
+                                      rglru_scan_ref(*ins)))
+        sets = _copies(torch, ins)
+        row.update(_scan_times(torch, rglru_scan, entry, sets, "rglru_scan",
+                               _scan_iters(B, S)))
+        row.update(plain_ms=_time_ms(torch, rglru_scan_ref, sets, 2),
+                   library_ms=None, **_rglru_bound(B, S, W))
         rows.append(row)
         if (B, S, W) == timed:
             out = row
-        del u, a, b, h, sets
+        del ins, sets, entry
     for row in rows:
         print("kernel_vs_plain", json.dumps(row))
     torch.cuda.empty_cache()

@@ -59,12 +59,18 @@ SIGNATURES = {
         "fused_rl_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "mamba_scan": {
         # x, dt, A, B, C, y, B, S, D, N, B's batch and time strides, C's
-        # batch and time strides (elements), stream
+        # batch and time strides (elements), path (0: the entry's choice,
+        # 1 short, 2 long), stream
         "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
-                       _L, _P]},
+                       _L, _I, _P],
+        # B, S, D, SMs of the card -> the path the entry takes (1 short,
+        # 2 long)
+        "mamba_scan_path": [_I, _I, _I, _I]},
     "rglru_scan": {
-        # a, b, h, B, S, W, stream
-        "rglru_scan": [_P, _P, _P, _I, _I, _I, _P]},
+        # a, b, h, B, S, W, path (as mamba_scan's), stream
+        "rglru_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # S -> the path the entry takes
+        "rglru_scan_path": [_I]},
 }
 
 _lock = threading.Lock()
@@ -151,7 +157,10 @@ def count_launch(wrapper) -> None:
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU: the wrappers then run their
     plain versions. Anything else takes the kernel or raises."""
-    return all(t.is_cpu for t in tensors)
+    for t in tensors:
+        if not t.is_cpu:
+            return False
+    return True
 
 
 def require_no_grad(name: str, *tensors) -> None:
@@ -191,20 +200,25 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def fp32(t):
+    """``t`` as float32 (``t`` itself where it is one)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
 def kernel_inputs(name: str, *tensors):
     """``tensors`` as the kernels take them: contiguous on 16-byte aligned
     bases (a copy only where one is not), all on one CUDA device, else
     ValueError. A few attribute reads a tensor, for wrappers whose host
     time is most of a call."""
     index = tensors[0].get_device()          # -1 on the CPU
-    out = []
+    if index < 0 or any(t.get_device() != index for t in tensors[1:]):
+        raise ValueError(f"{name}: inputs must share one CUDA device "
+                         f"(got {[str(x.device) for x in tensors]})")
     for t in tensors:
-        if t.get_device() != index or index < 0:
-            raise ValueError(f"{name}: inputs must share one CUDA device "
-                             f"(got {[str(x.device) for x in tensors]})")
-        out.append(t if t.is_contiguous() and not t.data_ptr() % 16
-                   else aligned(t))
-    return out
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            return [x if x.is_contiguous() and not x.data_ptr() % 16
+                    else aligned(x) for x in tensors]
+    return tensors
 
 
 def check_cuda_inputs(name: str, *tensors) -> None:

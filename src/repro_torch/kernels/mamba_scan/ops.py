@@ -4,21 +4,48 @@ reference's Pallas kernel is: under grad mode, on inputs that require
 grad, it raises rather than drop a gradient (the training forward takes
 the plain, differentiable scan).
 
-Inputs are cast to fp32, as the Pallas body casts them. x, dt and A are
-made contiguous; B and C are taken as they come, through their batch and
-time strides, since the model hands over ``torch.split`` views of the
-x_proj output (a row stride of dt_rank + 2N)."""
+Inputs are cast to fp32, as the Pallas body casts them. The checks that
+raise (device, shape, contiguity and alignment, no-grad) cost a few
+attribute reads each, and fp32 inputs that the kernel takes as they are go
+to it uncopied: x, dt and A contiguous; B and C as they come, through
+their batch and time strides, since the model hands over ``torch.split``
+views of the x_proj output (a row stride of dt_rank + 2N)."""
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 STATE_SIZES = (8, 16)
+CHANNELS = 64              # channels a block
+SHORT_MAX = 128            # longest S of the entry's short path
+SHORT_BLOCKS = 2           # its grid's blocks an SM at most
 
 
-def mamba_scan(x, dt, a, b, c):
+def path_for(B, S, D, n_sm):
+    """The path the C entry takes for B rows of S steps over D channels on
+    a card of ``n_sm`` SMs (``mamba_scan_path`` in ``csrc/mamba_scan.cu``):
+    1, every step's inputs copied into shared memory in one round, up to
+    SHORT_MAX steps on a grid of at most SHORT_BLOCKS blocks an SM; else
+    2, the long path."""
+    blocks = B * -(-D // CHANNELS)
+    return 1 if S <= SHORT_MAX and blocks <= SHORT_BLOCKS * n_sm else 2
+
+
+def _rows(t, index):
+    """B or C (B, S, N) in fp32 with a contiguous last axis, its batch and
+    time strides kept; ValueError off the CUDA device ``index``."""
+    if t.get_device() != index:
+        raise ValueError("mamba_scan: inputs must share one CUDA device "
+                         f"(got {t.device} beside cuda:{index})")
+    t = _build.fp32(t)
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def mamba_scan(x, dt, a, b, c, *, path=0):
     """x, dt: (B,S,D); a: (D,N); b, c: (B,S,N) -> y (B,S,D) float32. Any
-    S and D: the kernel masks ragged tails in place; N in (8, 16)."""
+    S and D: the kernel masks ragged tails in place; N in (8, 16).
+    ``path`` forces the entry's path (1 short, 2 long); 0 leaves the
+    choice to the entry (``path_for``)."""
     if _build.on_cpu(x, dt, a, b, c):
         return mamba_scan_ref(x, dt, a, b, c)
     _build.require_no_grad("mamba_scan", x, dt, a, b, c)
@@ -33,21 +60,17 @@ def mamba_scan(x, dt, a, b, c):
             f"mamba_scan: unsupported shapes x={tuple(x.shape)} "
             f"dt={tuple(dt.shape)} a={tuple(a.shape)} b={tuple(b.shape)} "
             f"c={tuple(c.shape)} (N in {STATE_SIZES})")
-    x, dt, a = (t.float().contiguous() for t in (x, dt, a))
-    b, c = (t.float() for t in (b, c))
-    b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (b, c))
-    dev = x.device
-    if any(t.device != dev for t in (dt, a, b, c)):
-        raise ValueError("mamba_scan: inputs must share one CUDA device "
-                         f"(got {[str(t.device) for t in (x, dt, a, b, c)]})")
-    y = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    x, dt, a = _build.kernel_inputs("mamba_scan", _build.fp32(x),
+                                    _build.fp32(dt), _build.fp32(a))
+    index = x.get_device()
+    b, c = _rows(b, index), _rows(c, index)
+    y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    err = _build.kernel("mamba_scan")(
+    _build.check("mamba_scan", _build.kernel("mamba_scan")(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), y.data_ptr(), B, S, D, N, b.stride(0), b.stride(1),
-        c.stride(0), c.stride(1), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("mamba_scan", err)
+        c.stride(0), c.stride(1), path, _build.raw_stream(index)))
     _build.count_launch(mamba_scan)
     return y
 

@@ -4,33 +4,45 @@ reference's Pallas kernel is: under grad mode, on inputs that require
 grad, it raises rather than drop a gradient (the training forward takes
 the differentiable associative scan of ``models/rglru.py``).
 
-Inputs are cast to fp32, as the Pallas wrapper casts them. Any B, S and W:
-the kernel masks ragged tails in place, where the reference's wrapper
-falls back to its oracle."""
+Inputs are cast to fp32, as the Pallas wrapper casts them. The checks that
+raise (device, shape, contiguity and alignment, no-grad) cost a few
+attribute reads each, and fp32 inputs that the kernel takes as they are go
+to it uncopied. Any B, S and W: the kernel masks ragged tails in place,
+where the reference's wrapper falls back to its oracle."""
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
+SHORT_MAX = 128            # longest S of the entry's short path
 
-def rglru_scan(a, b):
-    """a, b: (B, S, W) -> h (B, S, W) float32, h_t = a_t h_{t-1} + b_t."""
+
+def path_for(S):
+    """The path the C entry takes for S steps (``rglru_scan_path`` in
+    ``csrc/rglru_scan.cu``): 1, every step's inputs copied into shared
+    memory in one round, up to SHORT_MAX steps; else 2, the long path."""
+    return 1 if S <= SHORT_MAX else 2
+
+
+def rglru_scan(a, b, *, path=0):
+    """a, b: (B, S, W) -> h (B, S, W) float32, h_t = a_t h_{t-1} + b_t.
+    ``path`` forces the entry's path (1 short, 2 long); 0 leaves the
+    choice to the entry (``path_for``)."""
     if _build.on_cpu(a, b):
         return rglru_scan_ref(a, b)
     _build.require_no_grad("rglru_scan", a, b)
-    if a.dim() != 3 or b.shape != a.shape:
-        raise ValueError(f"rglru_scan: unsupported shapes a={tuple(a.shape)}"
+    shape = a.shape
+    if len(shape) != 3 or b.shape != shape:
+        raise ValueError(f"rglru_scan: unsupported shapes a={tuple(shape)}"
                          f" b={tuple(b.shape)} (both (B, S, W))")
-    a, b = (_build.aligned(t.float()) for t in (a, b))
-    _build.check_cuda_inputs("rglru_scan", a, b)
-    B, S, W = a.shape
-    h = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
-    if h.numel() == 0:
+    a, b = _build.kernel_inputs("rglru_scan", _build.fp32(a), _build.fp32(b))
+    h = torch.empty_like(a)
+    B, S, W = shape
+    if not B * S * W:
         return h
-    err = _build.kernel("rglru_scan")(
-        a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check("rglru_scan", err)
+    _build.check("rglru_scan", _build.kernel("rglru_scan")(
+        a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W, path,
+        _build.raw_stream(a.get_device())))
     _build.count_launch(rglru_scan)
     return h
 

@@ -30,6 +30,8 @@ from repro_torch.kernels.grpo_logprob import grpo_logprob, grpo_logprob_ref
 from repro_torch.kernels.grpo_logprob.ref import split_bounds
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
                                             scan_from)
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.tree import tree_map
 
@@ -452,9 +454,23 @@ def test_trainer_on_card_launches_every_kernel(cuda_device):
 # ulp rounding of exp in either fp32 version beyond 1e-4; the long shapes
 # take the model's ranges instead (A = -(1..N) as a_log's init, dt near
 # softplus(-4.6)), and the kernel is held to a float64 scan there.
-SCAN_SHAPES = [(1, 128, 128, 16, "reference"), (2, 256, 256, 8, "reference"),
-               (2, 79, 96, 16, "reference"), (1, 33, 40, 8, "reference"),
-               (16, 80, 8192, 16, "reference"), (1, 2048, 8192, 16, "model")]
+# (B, S, D, N, dist): the main path's rows (4 x 80 in the trainers'
+# reference inference, 1 x 80 a teacher-forced forward, 4 x 79 and
+# 2 x 79), one step, the short path's threshold and one step past it,
+# ragged D with N = 8, the reference test's shapes, 16 x 80 and the long
+# prefill
+SCAN_SHAPES = [(4, 80, 8192, 16, "model"), (1, 80, 8192, 16, "model"),
+               (4, 79, 8192, 16, "model"), (2, 79, 96, 16, "reference"),
+               (1, 1, 8192, 16, "model"), (4, 128, 8192, 16, "model"),
+               (4, 129, 8192, 16, "model"), (3, 80, 100, 8, "reference"),
+               (1, 128, 128, 16, "reference"), (2, 256, 256, 8, "reference"),
+               (1, 33, 40, 8, "reference"), (16, 80, 8192, 16, "reference"),
+               (1, 2048, 8192, 16, "model")]
+# (B, S, W): the main path's rows, one step, the threshold and one past
+# it, ragged S and W, the long prefill
+RGLRU_SHAPES = [(4, 80, 4096), (1, 80, 4096), (4, 79, 4096), (2, 79, 4096),
+                (4, 128, 4096), (4, 129, 4096), (1, 2048, 4096),
+                (3, 77, 1000), (2, 33, 4099), (1, 1, 5)]
 
 
 def _scan_inputs(gen, B, S, D, N, dist, device):
@@ -478,7 +494,7 @@ def test_mamba_scan_kernel_matches_plain(cuda_device, B, S, D, N, dist):
     B and C are strided views of one projection output, as in the model."""
     gen = torch.Generator(device=cuda_device).manual_seed(S + D)
     x, dt, a, b, c = _scan_inputs(gen, B, S, D, N, dist, cuda_device)
-    assert not b.is_contiguous()
+    assert b.stride(1) == 7 + 2 * N          # a view, not a copy
     n = mamba_scan.launches
     y = mamba_scan(x, dt, a, b, c)
     torch.cuda.synchronize()
@@ -500,6 +516,58 @@ def test_mamba_scan_kernel_is_as_close_to_fp64_as_plain(cuda_device, dist):
         err_k = (mamba_scan(*ins).double() - truth).abs().max().item()
     err_p = (mamba_scan_ref(*ins).double() - truth).abs().max().item()
     assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(4, 80, 8192, 16), (1, 1, 96, 8),
+                                     (4, 128, 8192, 16), (3, 77, 100, 8)])
+@pytest.mark.parametrize("path", [1, 2])
+def test_mamba_scan_forced_paths_match_plain(cuda_device, B, S, D, N, path):
+    """Each path of the entry (1 short, 2 long) wherever both take S, B
+    and C strided views of one projection, |err| <= 1e-4 + 1e-4 |ref|."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + path)
+    ins = _scan_inputs(gen, B, S, D, N, "model", cuda_device)
+    with torch.no_grad():
+        y = mamba_scan(*ins, path=path)
+    _assert_close_rel(y, mamba_scan_ref(*ins), 1e-4)
+
+
+@pytest.mark.parametrize("dist", ["reference", "model"])
+def test_mamba_scan_short_path_is_as_close_to_fp64_as_plain(cuda_device,
+                                                            dist):
+    """At the trainers' 4 x 80 rows (the short path), as the long
+    prefill's test holds the long path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    ins = _scan_inputs(gen, 4, 80, 8192, 16, dist, cuda_device)
+    h0 = torch.zeros((4, 8192, 16), dtype=torch.float64, device=cuda_device)
+    truth = scan_from(*(t.double() for t in ins), h0)[0]
+    with torch.no_grad():
+        err_k = (mamba_scan(*ins).double() - truth).abs().max().item()
+    err_p = (mamba_scan_ref(*ins).double() - truth).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+def test_scan_path_mirrors_pick_what_the_entries_pick(cuda_device):
+    """``path_for`` of each wrapper against its C entry's rule at S = 1,
+    79, 80, the threshold and one past it (``mamba_scan`` at 1 and 4 rows
+    of 8192 channels on this card); the short path refuses S past the
+    threshold."""
+    from repro_torch.kernels import _build
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    T = rglru_ops.SHORT_MAX
+    for S in (1, 79, 80, T, T + 1):
+        assert _build.kernel("rglru_scan_path")(S) == rglru_ops.path_for(S)
+    T = mamba_ops.SHORT_MAX
+    for B in (1, 4):
+        for S in (1, 79, 80, T, T + 1):
+            assert _build.kernel("mamba_scan_path")(B, S, 8192, n_sm) == \
+                mamba_ops.path_for(B, S, 8192, n_sm)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, dt, a, b, c = _scan_inputs(gen, 1, T + 1, 64, 8, "model", cuda_device)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mamba_scan(x, dt, a, b, c, path=1)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rglru_scan(dt, x, path=1)
 
 
 def test_mamba_scan_raises_under_grad_on_card(cuda_device):
@@ -552,9 +620,7 @@ def _rglru_inputs(gen, B, S, W, a_max, device):
     return a, b
 
 
-@pytest.mark.parametrize("B,S,W", [(4, 80, 4096), (1, 2048, 4096),
-                                   (3, 77, 1000), (2, 33, 4099),
-                                   (1, 1, 5)])
+@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
 def test_rglru_scan_kernel_matches_plain(cuda_device, B, S, W):
     """fp32 at the model's ranges, |err| <= 1e-4 + 1e-4 |ref| (the kernel
     rounds a*h + b once, the plain version twice); ragged S and W."""
@@ -585,6 +651,41 @@ def test_rglru_scan_kernel_is_as_close_to_fp64_as_plain(cuda_device, dist):
         a = 0.4 + 0.599 * torch.rand((1, 2048, 4096), generator=gen,
                                      device=cuda_device)
         b = _randn(gen, (1, 2048, 4096), torch.float32, cuda_device)
+    truth = torch.empty_like(a, dtype=torch.float64)
+    h = torch.zeros_like(a[:, 0], dtype=torch.float64)
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + b[:, t].double()
+        truth[:, t] = h
+    with torch.no_grad():
+        err_k = (rglru_scan(a, b).double() - truth).abs().max().item()
+    err_p = (rglru_scan_ref(a, b).double() - truth).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.parametrize("B,S,W", [(4, 80, 4096), (1, 1, 5), (4, 128, 4096),
+                                   (3, 77, 1000)])
+@pytest.mark.parametrize("path", [1, 2])
+def test_rglru_scan_forced_paths_match_plain(cuda_device, B, S, W, path):
+    """Each path of the entry wherever both take S."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + path)
+    a, b = _rglru_inputs(gen, B, S, W, 0.999, cuda_device)
+    with torch.no_grad():
+        h = rglru_scan(a, b, path=path)
+    _assert_close_rel(h, rglru_scan_ref(a, b), 1e-4)
+
+
+@pytest.mark.parametrize("dist", ["model", "reference"])
+def test_rglru_scan_short_path_is_as_close_to_fp64_as_plain(cuda_device,
+                                                            dist):
+    """At the trainers' 4 x 80 rows (the short path), as the long
+    prefill's test holds the long path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    if dist == "model":
+        a, b = _rglru_inputs(gen, 4, 80, 4096, 0.999, cuda_device)
+    else:
+        a = 0.4 + 0.599 * torch.rand((4, 80, 4096), generator=gen,
+                                     device=cuda_device)
+        b = _randn(gen, (4, 80, 4096), torch.float32, cuda_device)
     truth = torch.empty_like(a, dtype=torch.float64)
     h = torch.zeros_like(a[:, 0], dtype=torch.float64)
     for t in range(a.shape[1]):
