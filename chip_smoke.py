@@ -32,7 +32,12 @@ which raises on failure:
    sequences reproduces the logprobs their decode steps (decode kernel)
    recorded, in bf16 and in an fp32 run;
 6. a ``torch.profiler`` trace of a short serving run: device time by
-   kernel and the device's idle share; then the serving weights are freed;
+   kernel and the device's idle share;
+6b. ``launch.serve``'s supervised fleet over the same weights and the 16
+    prompts, 16 new tokens each: 2 continuous-engine replicas, a seeded
+    injector crashing a quarter of the requests; every request answered
+    exactly once, a restart counted, ids within the vocab, both attention
+    kernels launched; then the serving weights are freed;
 7. the training path's kernels (``grpo_logprob``, ``fused_rl_loss``
    forward and backward) against their plain versions at vocabs 152,064
    and 65,024 (4096 rows, and the trainer's micro-batch of 4 x 79 rows),
@@ -52,6 +57,22 @@ which raises on failure:
    shares;
 10. a ``torch.profiler`` trace of one actor update (forward, loss,
     backward, AdamW): device time by kernel and the device's idle share;
+10b. one PPO micro-batch at that width: the actor's loss, stats and
+    gradients through the loss kernels (per-token advantages) against the
+    plain loss, the critic's gradients finite with its lm_head's exactly
+    zero, and its values through ``compute_values`` (flash) against the
+    plain forward, in bf16 and fp32 compute;
+10c. ``Trainer.fit`` with PPO at that width cut to 1 layer (async,
+    continuous rollout, no KL, 3 steps of 16 samples): actor and critic metrics finite,
+    staleness in bound, the launch counts of the attention and loss
+    kernels, wall, samples/s, peak memory, stage busy shares and the
+    ``values`` and ``critic_update`` stages' seconds;
+10d. durable snapshots at full width cut to 1 layer (GRPO, KL on,
+    baseline mode): an uninterrupted 4-step run, a 2-step run writing
+    snapshots, and a fresh trainer resuming from them to step 4; the
+    stitched metrics equal the uninterrupted run's (bit-identical or
+    not, and the largest relative difference, at most 1e-6), each
+    snapshot's, restore's and final dump's seconds and bytes;
 11. ``mamba_scan`` against its plain version in fp32 at the trainer's
     reference-inference rows (4 x 80, D=8192, N=16), one teacher-forced
     forward (1 x 80), the long prefill (B=1, S=2048) and two ragged
@@ -107,16 +128,19 @@ which raises on failure:
 26. a trace of a short StableLM serving run; then the weights are freed;
 27. a JSON line per kernel and, last, the device line.
 
-Phases 3, 4, 9, 12, 16, 18, 23 and 24 set the launch counts of the
-kernels they check to 0 just before they start and read them just after
-(phases 12 and 18 read after the teacher-forced forwards of phases 13 and
-19).
+Phases 3, 4, 6b, 9, 10c, 10d, 12, 16, 18, 23 and 24 set the launch
+counts of the kernels they check to 0 just before they start and read them
+just after (phases 12 and 18 read after the teacher-forced forwards of
+phases 13 and 19). The kernel line's launches are the main paths' sums:
+the attention kernels over phases 3, 6b and 10c, the loss kernels over
+9 and 10c (``grpo_logprob`` over 9 and 10d), the scans over 16 and 23.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -171,6 +195,22 @@ MAX_NEW = 32
 NUM_SLOTS = 4
 TEMPERATURE = 0.8
 SEED = 0                   # weights, prompts and sampling keys
+FLEET_REPLICAS = 2         # the serving fleet: replicas, the injector's
+FLEET_CRASH_P = 0.25       # crash probability a request, and its seed
+FLEET_FAULT_SEED = 1
+FLEET_NEW = 16             # new tokens a fleet request: a replica serves
+                           # one request at a time, so its decode runs at
+                           # B=1 and the fleet's wall is the host's
+PPO_TRAIN_LAYERS = 1       # the PPO trainer's depth (width is full). At
+                           # 2 layers its peak read 72.1-77.8 GB of the
+                           # card's 85.0: actor and critic each hold 5 x
+                           # 6.2 GB (params, moments, summed and new
+                           # gradients), and in async mode their AdamW
+                           # steps' temporaries and the rollout's weight
+                           # swap coincide, about 81 GB at worst
+DURABLE_LAYERS = 1         # the durability phase's depth, steps and new
+DURABLE_STEPS = 4          # tokens a sample (full width: one actor state
+DURABLE_NEW = 32           # of params and two moments is 15.8 GB)
 
 
 def _import_port():
@@ -993,9 +1033,10 @@ def _counters(*names):
     return {n: every[n] for n in names}
 
 
-def phase_trainer(torch, cfg2, smi, backend, kernels):
+def phase_trainer(torch, cfg2, smi, backend, kernels, **overrides):
     """``Trainer.fit`` on the card; returns (trainer, launches of
-    ``kernels``, each of which must have run).
+    ``kernels``, each of which must have run). ``overrides`` replace
+    ``TrainerConfig`` fields (PPO: ``algorithm="ppo"``, ``kl_coef=0``).
 
     lr 1e-6, a GRPO post-training rate for 7B models: at the CPU-scale
     default 3e-4, AdamW's first, sign-like steps on the KL term's
@@ -1006,17 +1047,19 @@ def phase_trainer(torch, cfg2, smi, backend, kernels):
     # the run's telemetry reads the process-global registry: start it empty
     # so an earlier run's weight syncs do not count here
     get_registry().clear()
-    tcfg = TrainerConfig(
+    tcfg = TrainerConfig(**{**dict(
         mode="async", num_steps=3, prompts_per_step=4, group_size=4,
         rollout_workers=2, rollout_batch=2, train_micro_batch=4,
         max_new_tokens=64, seq_len=80, kl_coef=0.05, lr=1e-6,
-        rollout_backend=backend, staleness=1, seed=SEED)
+        rollout_backend=backend, staleness=1, seed=SEED), **overrides})
+    before = torch.cuda.memory_allocated()
     trainer = Trainer(tcfg, model_cfg=cfg2)
     counters = _counters(*kernels)
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.monotonic()
     res = trainer.fit()
     torch.cuda.synchronize()
@@ -1032,6 +1075,14 @@ def phase_trainer(torch, cfg2, smi, backend, kernels):
                   "ratio_mean"):
             if not math.isfinite(m[k]):
                 raise AssertionError(f"trainer: {k} not finite: {m}")
+    critic = res.aux_metrics.get("critic_update", [])
+    if tcfg.algorithm == "ppo":
+        if len(critic) != tcfg.num_steps:
+            raise AssertionError(f"critic: {len(critic)} steps: {critic}")
+        for m in critic:
+            if not all(math.isfinite(m[k]) for k in ("value_loss",
+                                                     "grad_norm")):
+                raise AssertionError(f"critic: not finite: {m}")
     if max(res.staleness_seen) > tcfg.staleness + 1:
         raise AssertionError(f"staleness {max(res.staleness_seen)}")
     if min(launches.values()) == 0:
@@ -1039,16 +1090,341 @@ def phase_trainer(torch, cfg2, smi, backend, kernels):
     tel = res.telemetry
     sync = [v for v in tel["metrics"].get("weight_sync_seconds",
                                           {}).get("values", [])]
+    stage_s = {r["stage"]: r["busy_s"] for r in tel["stages"]}
     print(json.dumps({
         "phase": "trainer", "card": smi, "model": cfg2.name,
+        "algorithm": tcfg.algorithm, "kl_coef": tcfg.kl_coef,
         "layers": cfg2.num_layers, "rollout_backend": backend,
         "steps": len(steps), "samples": res.samples_trained,
         "wall_s": wall, "samples_per_s": res.samples_trained / wall,
         "max_staleness": max(res.staleness_seen), "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "resident_gb": {"before_trainer": before / 1e9,
+                        "before_fit": resident / 1e9},
         "weight_sync_seconds": sync, "stages": tel["stages"],
-        "instances": tel["instances"], "metrics": steps}))
+        "instances": tel["instances"], "metrics": steps,
+        **({"values_s": stage_s.get("values"),
+            "critic_update_s": stage_s.get("critic_update"),
+            "critic_metrics": critic} if tcfg.algorithm == "ppo" else {})}))
     return trainer, launches
+
+
+def phase_fleet(torch, cfg, params, prompts, smi):
+    """``launch.serve``'s supervised fleet over the full-width serving
+    weights: FLEET_REPLICAS continuous-engine replicas drain the prompts
+    under ``ReplicaSupervisor`` while a seeded injector crashes some; every
+    request is answered exactly once, a restart is counted, ids are within
+    the vocab and both attention kernels launched. Returns the launches."""
+    from types import SimpleNamespace
+
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import _serve_fleet
+    args = SimpleNamespace(replicas=FLEET_REPLICAS, crash_p=FLEET_CRASH_P,
+                           fault_seed=FLEET_FAULT_SEED, slots=NUM_SLOTS,
+                           max_new_tokens=FLEET_NEW, temperature=TEMPERATURE,
+                           seed=SEED)
+    requests = [{"tokens": p, "text": f"request {i}"}
+                for i, p in enumerate(prompts)]
+    decode_attention.launches = flash_attention.launches = 0
+    t0 = time.monotonic()
+    outputs, restarts = _serve_fleet(args, cfg, params, requests,
+                                     ByteTokenizer(), "cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    if [o["prompt"] for o in outputs] != [r["text"] for r in requests]:
+        raise AssertionError("fleet: requests not answered once each")
+    ids = [t for o in outputs for t in o["response_ids"]]
+    if not all(o["response_ids"] for o in outputs) or \
+            not all(0 <= t < cfg.vocab_size for t in ids):
+        raise AssertionError("fleet: empty answer or id out of range")
+    if restarts < 1:
+        raise AssertionError("fleet: no replica restart was counted")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"fleet: a kernel never ran: {launches}")
+    print(json.dumps({
+        "phase": "fleet", "model": cfg.name, "layers": cfg.num_layers,
+        "card": smi, "replicas": FLEET_REPLICAS, "crash_p": FLEET_CRASH_P,
+        "fault_seed": FLEET_FAULT_SEED, "requests": len(outputs),
+        "replica_restarts": restarts, "new_tokens": len(ids),
+        "wall_s": wall, "tokens_per_s": len(ids) / wall,
+        "launches": launches}))
+    return launches
+
+
+def _ppo_rows(cfg, n, seed):
+    """PPO experience rows: ``_train_rows`` with per-token advantages,
+    returns and old values, as the GAE stage writes them."""
+    import numpy as np
+    rows = _train_rows(cfg, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    mask = rows["response_mask"][0]
+    per_tok = [(rng.standard_normal(len(mask)) * mask).astype(np.float32)
+               for _ in range(3 * n)]
+    rows["advantage"] = per_tok[:n]
+    rows["returns"] = per_tok[n:2 * n]
+    rows["values"] = [0.1 * v for v in per_tok[2 * n:]]
+    return rows
+
+
+def _plain_values(torch, critic, cfg, tokens):
+    """The critic's values through ``forward_hidden(use_kernels=False)``
+    and the value head, on the host."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dense
+    with torch.no_grad():
+        hidden = transformer.forward_hidden(critic["backbone"], cfg, tokens,
+                                            use_kernels=False)
+        return dense(critic["value_head"], hidden,
+                     hidden.dtype)[..., 0].float().cpu()
+
+
+def phase_ppo_microbatch(torch, cfg2):
+    """One PPO micro-batch (4 x 80 tokens) at full width, cut depth. The
+    actor's loss, stats and every gradient through the loss kernels against
+    the plain loss; the critic's value loss (it has no kernel) with every
+    gradient finite and the backbone's lm_head gradient exactly zero; the
+    critic's values through ``CriticEngine.compute_values`` (the kernels'
+    forward) against ``forward_hidden(use_kernels=False)`` under the value
+    head: within 1e-4 + 1e-4·|ref| in fp32, and in bf16 by the
+    teacher-forced phases' rule (the kernel route at most BF16_TF_FACTOR
+    times as far from an fp32 forward as the plain bf16 route). bf16 and
+    fp32 compute."""
+    import numpy as np
+
+    from repro_torch.autodiff import grad_and_metrics
+    from repro_torch.engines import CriticEngine, pack_rows
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
+                                                   fused_rl_loss_fwd)
+    from repro_torch.models import init_params
+    from repro_torch.rl import loss as loss_mod
+    from repro_torch.rl import ppo
+    from repro_torch.tree import tree_leaves
+    params = init_params(SEED, cfg2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    critic = ppo.init_critic_params(gen, cfg2)
+    rows = _ppo_rows(cfg2, 4, SEED)
+    batch = pack_rows(rows, 80)
+    rl = ppo.PPOConfig()
+    tol = {"bfloat16": 2e-2, "float32": 1e-4}
+    cfg32 = dataclasses.replace(cfg2, compute_dtype="float32")
+    report = {"phase": "ppo_microbatch", "model": cfg2.name,
+              "layers": cfg2.num_layers}
+    for compute, gtol in tol.items():
+        c = dataclasses.replace(cfg2, compute_dtype=compute)
+        n = fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        g_k, m_k = grad_and_metrics(ppo.ppo_actor_loss_fn, params, c, batch,
+                                    rl)
+        torch.cuda.synchronize()
+        t_k = time.monotonic() - t0
+        if (fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches) != \
+                (n[0] + 1, n[1] + 1):
+            raise AssertionError("the PPO micro-batch missed the loss "
+                                 "kernels")
+        inner = loss_mod.fused_rl_loss
+        loss_mod.fused_rl_loss = _plain_fused_rl_loss
+        try:
+            g_p, m_p = grad_and_metrics(ppo.ppo_actor_loss_fn, params, c,
+                                        batch, rl)
+        finally:
+            loss_mod.fused_rl_loss = inner
+        stats = {k: (float(m_k[k]), float(m_p[k])) for k in m_k}
+        for k, (a, b) in stats.items():
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * (1 + abs(b))):
+                raise AssertionError(f"PPO micro-batch {compute} {k}: "
+                                     f"kernel {a} vs plain {b}")
+        rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+        if not rel <= gtol:
+            raise AssertionError(f"PPO micro-batch {compute}: gradients "
+                                 f"differ by {rel} relative (limit {gtol})")
+        watched = {k: float(t.abs().max())
+                   for k, t in _watched_grads(cfg2, g_k).items()}
+        if not min(watched.values()) > 0.0:
+            raise AssertionError(f"parameters got no gradient: {watched}")
+        del g_k, g_p
+        g_c, m_c = grad_and_metrics(ppo.ppo_critic_loss_fn, critic, c,
+                                    batch, rl, zero_unused=True)
+        lm_head = float(g_c["backbone"]["lm_head"]["w"].abs().max())
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     tree_leaves(g_c))
+        c_watched = {k: float(t.abs().max()) for k, t in _watched_grads(
+            cfg2, g_c["backbone"]).items()}
+        c_watched["value_head"] = float(g_c["value_head"]["w"].abs().max())
+        if lm_head != 0.0 or not finite or not min(c_watched.values()) > 0:
+            raise AssertionError(f"critic grads {compute}: lm_head max "
+                                 f"{lm_head}, finite {finite}, {c_watched}")
+        del g_c
+        eng = CriticEngine(c, critic)
+        n_flash = flash_attention.launches
+        got = eng.compute_values(rows)["updates"]["values"]
+        launched = flash_attention.launches - n_flash
+        if launched != cfg2.num_layers:
+            raise AssertionError(f"compute_values launched flash "
+                                 f"{launched} times")
+        del eng
+        got = torch.tensor(np.stack(got))
+        plain = {k: _plain_values(torch, critic, cc, batch["tokens"])
+                 for k, cc in ((compute, c), ("float32", cfg32))}
+        v_err = float((got - plain[compute]).abs().max())
+        if compute == "float32":
+            ok = bool(((got - plain[compute]).abs()
+                       <= gtol + gtol * plain[compute].abs()).all())
+            values = {"max_abs_err": v_err}
+        else:
+            # the bf16 rule of the teacher-forced phases: the kernel
+            # route's distance from an fp32 forward is at most
+            # BF16_TF_FACTOR times the plain bf16 route's
+            values = {
+                "kernel_vs_plain": v_err,
+                "kernel_vs_fp32": float((got - plain["float32"])
+                                        .abs().max()),
+                "plain_vs_fp32": float((plain[compute] - plain["float32"])
+                                       .abs().max())}
+            ok = values["kernel_vs_fp32"] <= \
+                BF16_TF_FACTOR * values["plain_vs_fp32"]
+        if not ok:
+            raise AssertionError(f"compute_values {compute}: {values}")
+        report[compute] = {"actor_stats_kernel_plain": stats,
+                           "actor_max_grad_rel_frobenius": rel,
+                           "limit": gtol, "actor_grad_abs_max": watched,
+                           "actor_grad_step_s": t_k,
+                           "value_loss": float(m_c["value_loss"]),
+                           "critic_lm_head_grad_abs_max": lm_head,
+                           "critic_grad_abs_max": c_watched,
+                           "values": values}
+    print(json.dumps(report))
+    del params, critic
+    _release(torch)
+
+
+def _snapshot_records(torch):
+    """Wrap ``RunCheckpointer.save``/``load_engine`` and the trainer's
+    ``save_checkpoint`` (its ``<dir>/final`` dump) to record each one's
+    seconds and bytes; returns (records, undo)."""
+    import repro_torch.training as training
+    from repro_torch.core.recovery import snapshot as snap
+    records = []
+    save, load, final = (snap.RunCheckpointer.save,
+                         snap.RunCheckpointer.load_engine,
+                         training.save_checkpoint)
+
+    def timed(kind, fn, path_of):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            records.append({"kind": kind, "s": time.monotonic() - t0,
+                            "bytes": snap._dir_bytes(path_of(a, out))})
+            return out
+        return wrapper
+
+    snap.RunCheckpointer.save = timed("snapshot", save, lambda a, o: o)
+    snap.RunCheckpointer.load_engine = staticmethod(timed(
+        "restore", load, lambda a, o: os.path.join(a[0], a[1])))
+    training.save_checkpoint = timed("final_dump", final, lambda a, o: a[0])
+
+    def undo():
+        snap.RunCheckpointer.save = save
+        snap.RunCheckpointer.load_engine = staticmethod(load)
+        training.save_checkpoint = final
+    return records, undo
+
+
+def phase_durability(torch, cfg1, smi):
+    """GRPO with KL at full width, cut to DURABLE_LAYERS layers, baseline
+    mode: an uninterrupted DURABLE_STEPS-step run; a run of half the steps
+    with snapshots (``checkpoint_interval_steps=0``: the run's start and
+    end); a fresh trainer that resumes from them (``fit(resume="auto")``)
+    to the last step. The stitched run's step metrics equal the
+    uninterrupted run's. Where the disk under the snapshot directory
+    cannot hold the run's snapshots and dumps, the reduced trunk runs
+    instead. Returns the launches of ``grpo_logprob``."""
+    import shutil
+
+    from repro_torch.api import Trainer, TrainerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.obs import get_registry
+    from repro_torch.kernels.grpo_logprob import grpo_logprob
+    from repro_torch.models import count_params, init_params
+    directory = ROOT / "build" / "smoke_snapshots"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    kw = dict(mode="baseline", prompts_per_step=4, group_size=4,
+              rollout_workers=1, rollout_batch=4, train_micro_batch=16,
+              max_new_tokens=DURABLE_NEW, seq_len=16 + DURABLE_NEW,
+              kl_coef=0.05, lr=1e-6, rollout_backend="continuous",
+              seed=SEED, checkpoint_keep_last=1)
+
+    def fit(cfg, steps, resume=None, **more):
+        get_registry().clear()
+        tr = Trainer(TrainerConfig(num_steps=steps, **kw, **more),
+                     model_cfg=cfg)
+        res = tr.fit(resume=resume)
+        del tr
+        _release(torch)
+        return res
+
+    # one actor state: params and two moments in fp32. keep_last 1 holds
+    # at most two snapshots at once (the new one before the old is
+    # pruned), and two final dumps (the new before the old goes)
+    state_bytes = 3 * 4 * count_params(init_params(SEED, cfg1))
+    _release(torch)
+    free = shutil.disk_usage(directory).free
+    need = 4 * state_bytes
+    width, why = "full", None
+    if free < need:
+        width = "reduced"
+        why = (f"{free / 1e9:.1f} GB free under the snapshot directory, "
+               f"{need / 1e9:.1f} GB needed at full width")
+        cfg1 = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+                                   vocab_size=cfg1.vocab_size)
+    grpo_logprob.launches = 0
+    records, undo = _snapshot_records(torch)
+    t0 = time.monotonic()
+    try:
+        full = fit(cfg1, DURABLE_STEPS)
+        half = fit(cfg1, DURABLE_STEPS // 2, checkpoint_dir=str(directory),
+                   checkpoint_interval_steps=0)
+        resumed = fit(cfg1, DURABLE_STEPS, resume="auto",
+                      checkpoint_dir=str(directory),
+                      checkpoint_interval_steps=0)
+    finally:
+        undo()
+        shutil.rmtree(directory, ignore_errors=True)
+    wall = time.monotonic() - t0
+    keys = ("loss", "policy_loss", "grad_norm", "mean_reward", "entropy")
+    a, b = full.metrics, resumed.metrics
+    if [m["step"] for m in a] != list(range(DURABLE_STEPS)) or \
+            [m["step"] for m in b] != [m["step"] for m in a] or \
+            b[:len(half.metrics)] != half.metrics:
+        raise AssertionError(f"durability: steps {a} vs {b}")
+    rel = max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
+              for x, y in zip(a, b) for k in keys)
+    identical = all(x[k] == y[k] for x, y in zip(a, b) for k in keys)
+    if not rel <= 1e-6 or resumed.samples_trained != full.samples_trained:
+        raise AssertionError(f"durability: resumed run differs by {rel} "
+                             f"relative: {a} vs {b}")
+    if grpo_logprob.launches == 0:
+        raise AssertionError("durability: grpo_logprob never ran")
+    print(json.dumps({
+        "phase": "durability", "model": cfg1.name,
+        "layers": cfg1.num_layers, "width": width,
+        **({"why": why} if why else {}), "card": smi,
+        "disk_free_gb": free / 1e9, "state_gb": state_bytes / 1e9,
+        "steps": DURABLE_STEPS, "bit_identical": identical,
+        "max_rel_diff": rel, "wall_s": wall,
+        "grpo_logprob_launches": grpo_logprob.launches,
+        "records": records, "metrics": b}))
+    return grpo_logprob.launches
 
 
 def profile_actor_update(torch, trainer):
@@ -1566,6 +1942,10 @@ def main():
 
     # -- 6. where the device time goes ---------------------------------------
     profile_serving(torch, params, cfg, prompts, max_len)
+
+    # -- 6b. the supervised serving fleet over the same weights --------------
+    for name, n in phase_fleet(torch, cfg, params, prompts, smi).items():
+        launches[name] += n
     del params, eng, done
     torch.cuda.empty_cache()
 
@@ -1589,6 +1969,24 @@ def main():
     profile_actor_update(torch, trainer)
     del trainer
     _release(torch)
+
+    # -- 10b. one PPO micro-batch at full width -------------------------------
+    phase_ppo_microbatch(torch, cfg2)
+
+    # -- 10c. the PPO trainer -------------------------------------------------
+    trainer, ppo_launches = phase_trainer(
+        torch, dataclasses.replace(cfg, num_layers=PPO_TRAIN_LAYERS), smi,
+        "continuous",
+        ("flash_attention", "decode_attention", "fused_rl_loss_fwd",
+         "fused_rl_loss_bwd"), algorithm="ppo", kl_coef=0.0)
+    for name, n in ppo_launches.items():
+        launches[name] += n
+    del trainer
+    _release(torch)
+
+    # -- 10d. durable snapshots and a cold resume -----------------------------
+    launches["grpo_logprob"] += phase_durability(
+        torch, dataclasses.replace(cfg, num_layers=DURABLE_LAYERS), smi)
 
     # -- 11. the selective scan vs its plain version --------------------------
     ssm = get_config("falcon_mamba_7b")

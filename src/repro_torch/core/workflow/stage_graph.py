@@ -34,9 +34,8 @@ owned by the runner, so every dataflow — built-in or user-registered via
 :func:`register_dataflow` — inherits the paper's §4.2 machinery.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-durable run snapshots and trainer recovery (``checkpoint_dir``, ROADMAP
-§1 item 9) and the planner's worker sizing (``auto_size_workers``,
-``elastic_interval_s``, item 10).
+the planner's worker sizing (``auto_size_workers``,
+``elastic_interval_s``, ROADMAP §1 item 10).
 """
 from __future__ import annotations
 
@@ -270,10 +269,6 @@ class StageRunner:
         continues the snapshot's uid space (caller restores the engine
         states before constructing the runner)."""
         graph.validate()
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: durable run snapshots and trainer recovery "
-                "are not ported yet (ROADMAP §1 item 9)")
         if cfg.auto_size_workers or cfg.elastic_interval_s > 0:
             raise NotImplementedError(
                 "auto_size_workers / elastic_interval_s: the planner's "
@@ -383,7 +378,12 @@ class StageRunner:
         self._fail_lock = threading.Lock()
 
         # ---- durable run checkpointing & trainer recovery ---------------
-        self._ckpt = None                 # checkpoint_dir is refused above
+        self._ckpt = None
+        if cfg.checkpoint_dir:
+            from repro_torch.core.recovery import RunCheckpointer
+            self._ckpt = RunCheckpointer(
+                cfg.checkpoint_dir, keep_last=cfg.checkpoint_keep_last,
+                metrics=self.registry)
         self._train_step = resume_step    # next step the driver runs
         self._feed_start = resume_step    # dataset/prompt-feed cursor
         self._trainer_epoch = 0           # bumped per warm restart (fence)

@@ -4,10 +4,13 @@
 it accumulates gradients over streamed micro-batches and applies the AdamW
 step once a full global batch has passed through (so streaming
 micro-consumption is algorithm-identical to whole-batch training), with the
-GRPO loss over scalar group advantages.
+GRPO loss over scalar group advantages (``algorithm="grpo"``) or the
+actor-only PPO loss over per-token GAE advantages (``algorithm="ppo"``).
 
-The PPO actor loss and ``CriticEngine`` (``compute_values`` /
-``update_critic``) are not ported yet (ROADMAP §1 item 8).
+``CriticEngine`` implements the PPO value-side stage verbs:
+``compute_values`` (the streaming critic-inference task) and
+``update_critic`` (the streaming critic-update task), with the same
+gradient-accumulation contract as the actor.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.autodiff import grad_and_metrics
 from repro_torch.device import resolve_device
 from repro_torch.engines.adapter import EngineRegistry, RLAdapter
-from repro_torch.rl.grpo import GRPOConfig, grpo_grad_step
+from repro_torch.rl.grpo import GRPOConfig, grpo_loss_fn
+from repro_torch.rl.ppo import (PPOConfig, critic_forward, ppo_actor_loss_fn,
+                                ppo_critic_loss_fn)
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_state import TrainState
 from repro_torch.tree import tree_leaves, tree_map
@@ -133,19 +139,26 @@ class _AccumulatingEngine(RLAdapter):
 
 @EngineRegistry.register("torch_train")
 class TrainEngine(_AccumulatingEngine):
-    """Actor-update stage engine (GRPO loss; the reference's
-    ``algorithm="ppo"`` waits for ROADMAP §1 item 8). ``init_params`` live
-    on the device the engine trains on."""
+    """Actor-update stage engine (GRPO or PPO-actor loss). ``init_params``
+    live on the device the engine trains on."""
 
     def __init__(self, cfg, init_params, *, rl=None,
                  opt: Optional[OptimizerConfig] = None,
-                 global_batch: int = 16, seq_len: int = 32):
+                 global_batch: int = 16, seq_len: int = 32,
+                 algorithm: str = "grpo"):
         super().__init__(cfg, init_params, opt=opt,
                          global_batch=global_batch, seq_len=seq_len)
-        self.rl = rl or GRPOConfig()
+        self.algorithm = algorithm
+        if algorithm == "ppo":
+            self.rl = rl or PPOConfig()
+            self._loss_fn = ppo_actor_loss_fn
+        else:
+            self.rl = rl or GRPOConfig()
+            self._loss_fn = grpo_loss_fn
 
     def _grad(self, jb):
-        return grpo_grad_step(self.state.params, self.cfg, self.rl, jb)
+        return grad_and_metrics(self._loss_fn, self.state.params, self.cfg,
+                                jb, self.rl)
 
     def update(self, batch: Dict[str, list]) -> dict:
         return self._consume(batch)
@@ -156,8 +169,44 @@ class TrainEngine(_AccumulatingEngine):
 
 @EngineRegistry.register("torch_critic")
 class CriticEngine(_AccumulatingEngine):
-    """PPO value-side stage engine: not ported yet."""
+    """PPO value-side stage engine: streaming critic inference
+    (``compute_values``) and critic updates (``update_critic``).
+    ``critic_params`` ({"backbone", "value_head"}) live on the device the
+    engine runs on."""
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "the PPO critic engine is not ported yet (ROADMAP §1 item 8)")
+    def __init__(self, cfg, critic_params, *, rl: Optional[PPOConfig] = None,
+                 opt: Optional[OptimizerConfig] = None,
+                 global_batch: int = 16, seq_len: int = 32):
+        super().__init__(cfg, critic_params, opt=opt,
+                         global_batch=global_batch, seq_len=seq_len)
+        self.rl = rl or PPOConfig()
+
+    def compute_values(self, batch, **kw):
+        """Stage verb: per-token values over each row's full sequence,
+        through the forward-only kernels (padded to a multiple of 8, as
+        the reference pads for XLA's compile reuse)."""
+        arrs = [np.asarray(r) for r in batch["response"]]
+        S = max(len(a) for a in arrs)
+        S = ((S + 7) // 8) * 8
+        toks = np.zeros((len(arrs), S), np.int64)
+        for i, a in enumerate(arrs):
+            toks[i, :len(a)] = a
+        with torch.no_grad():
+            vals = critic_forward(self.state.params, self.cfg,
+                                  torch.from_numpy(toks).to(self.device),
+                                  use_kernels=True).cpu().numpy()
+        return {"updates": {"values":
+                            [vals[i, :len(a)].astype(np.float32)
+                             for i, a in enumerate(arrs)]}}
+
+    def _grad(self, jb):
+        # the value head reads the final-norm hidden states, so the
+        # backbone's lm_head never reaches the loss: its gradient is zero
+        return grad_and_metrics(ppo_critic_loss_fn, self.state.params,
+                                self.cfg, jb, self.rl, zero_unused=True)
+
+    def update_critic(self, batch, **kw):
+        return self._consume(batch)
+
+    def update(self, batch):
+        return self._consume(batch)

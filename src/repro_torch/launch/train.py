@@ -7,8 +7,8 @@ default on the reduced architecture.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen2_5_7b --mode async --steps 4
 
-``--checkpoint-dir`` and ``--resume`` are refused: durable run snapshots
-are not ported yet (ROADMAP §1 item 9).
+``--checkpoint-dir`` writes durable run snapshots; ``--resume auto`` (or a
+snapshot path) cold-resumes a killed run from them.
 """
 from __future__ import annotations
 
@@ -37,19 +37,18 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="",
-                    help="not ported yet (ROADMAP §1 item 9)")
-    ap.add_argument("--checkpoint-interval", type=int, default=1)
+                    help="durable run-snapshot directory (enables warm "
+                         "trainer recovery and --resume)")
+    ap.add_argument("--checkpoint-interval", type=int, default=1,
+                    help="snapshot every N steps (0 = start/end only)")
     ap.add_argument("--resume", default=None,
-                    help="not ported yet (ROADMAP §1 item 9)")
+                    help='"auto" or a snapshot path: cold-resume a '
+                         "killed run from its newest intact snapshot")
     ap.add_argument("--gantt", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint_dir or args.resume:
-        raise NotImplementedError(
-            "--checkpoint-dir/--resume: durable run snapshots are not "
-            "ported yet (ROADMAP §1 item 9)")
 
     from repro_torch.api import Trainer, TrainerConfig
 
@@ -60,9 +59,10 @@ def main(argv=None):
         max_new_tokens=args.max_new_tokens, staleness=args.staleness,
         staggered=args.staggered, policy=args.policy, lr=args.lr,
         seed=args.seed, chunk_tokens=args.chunk_tokens,
+        checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval_steps=args.checkpoint_interval,
         device=args.device)
-    result = Trainer(tcfg).fit()
+    result = Trainer(tcfg).fit(resume=args.resume)
 
     summary = {
         "mode": args.mode, "arch": args.arch, "device": args.device,

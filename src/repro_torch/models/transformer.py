@@ -10,7 +10,8 @@ left over after the last whole tile are a list, ``params["rem"]``. Its
 attention blocks are local (``cfg.local_window``) and decode over a ring
 cache.
 ``forward_lm`` returns ``(logits, aux, cache_or_None)`` with aux 0 (no MoE
-yet).
+yet); ``forward_hidden`` returns the trunk's final-norm hidden states that
+``forward_lm`` unembeds (the PPO value head reads them).
 
 The moe and vlm families, and MLA attention, are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -162,10 +163,39 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
     runs at ``cfg.local_window`` whatever ``window`` is, and its cache is
     the reference's {"att_kv": {"k", "v"}} of the tiles' attention layers
     (None without a whole tile)."""
-    _require_ported(cfg)
     if return_cache and cfg.arch_type == "ssm":
         raise ValueError(f"{cfg.name}: the ssm family has no prefill cache; "
                          "feed the prompt through decode_step")
+    x, kv = _forward_trunk(params, cfg, tokens, window=window,
+                           positions=positions, use_kernels=use_kernels,
+                           return_kv=return_cache)
+    cd = dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        logits = unembed(params["embed"], x, cd)
+    else:
+        logits = dense(params["lm_head"], x, cd)
+    cache = None
+    if return_cache:
+        cache = {"att_kv" if cfg.arch_type == "hybrid" else "kv": kv}
+    return logits, 0.0, cache
+
+
+def forward_hidden(params, cfg, tokens, *, use_kernels=True, positions=None,
+                   window=0):
+    """Final-norm hidden states (B, S, d), the trunk of ``forward_lm``
+    without the unembed: what the PPO value head reads. ``use_kernels``
+    picks the route as in ``forward_lm``."""
+    x, _ = _forward_trunk(params, cfg, tokens, window=window,
+                          positions=positions, use_kernels=use_kernels,
+                          return_kv=False)
+    return x
+
+
+def _forward_trunk(params, cfg, tokens, *, window, positions, use_kernels,
+                   return_kv):
+    """The forward up to and including ``final_norm``: (hidden (B, S, d),
+    the stacked {"k", "v"} of the cached attention layers or None)."""
+    _require_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
     B, S, _ = x.shape
@@ -181,7 +211,7 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
             x, k, v = _attn_block_full(p, x, cfg, window=cfg.local_window,
                                        positions=positions,
                                        use_kernels=use_kernels)
-            if return_cache and layer.tile is not None:
+            if return_kv and layer.tile is not None:
                 ks.append(k)
                 vs.append(v)
     elif cfg.arch_type == "ssm":
@@ -195,20 +225,11 @@ def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
             x, k, v = _attn_block_full(_layer(params["blocks"], i), x, cfg,
                                        window=window, positions=positions,
                                        use_kernels=use_kernels)
-            if return_cache:
+            if return_kv:
                 ks.append(k)
                 vs.append(v)
-
-    x = norm(params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = unembed(params["embed"], x, cd)
-    else:
-        logits = dense(params["lm_head"], x, cd)
-    cache = None
-    if return_cache:
-        kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
-        cache = {"att_kv" if cfg.arch_type == "hybrid" else "kv": kv}
-    return logits, 0.0, cache
+    kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+    return norm(params["final_norm"], x), kv
 
 
 # ---------------------------------------------------------------------------

@@ -16,13 +16,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
+from repro_torch.autodiff import grad_and_metrics
 from repro_torch.core.workflow.stage_graph import (StageGraph, StageSpec,
                                                    register_dataflow)
 from repro_torch.models import forward
 from repro_torch.rl.loss import fused_actor_loss
-from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,21 +68,10 @@ def grpo_loss_fn(params, cfg, batch, rl: GRPOConfig, ref_logprob=None):
 
 def grpo_grad_step(params, cfg, rl: GRPOConfig, batch):
     """Gradients only (for streaming gradient accumulation): a tree like
-    ``params`` of fresh gradient tensors, and the detached metrics.
-
-    Autograd records on detached aliases of the parameters, so the tensors
-    in ``params`` (which rollout workers may be sampling with) are neither
-    marked as requiring grad nor given a ``.grad``; grad mode is switched
-    on here because the caller's thread may have it off. Every parameter
-    of a dense, ssm or hybrid model reaches the loss, so one that autograd
-    did not reach (a route that recorded no graph) raises."""
-    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
-        loss, metrics = grpo_loss_fn(tree_unflatten(params, live), cfg,
-                                     batch, rl)
-        grads = torch.autograd.grad(loss, live)
-    return (tree_unflatten(params, grads),
-            {k: v.detach() for k, v in metrics.items()})
+    ``params`` of fresh gradient tensors, and the detached metrics. Every
+    parameter of a dense, ssm or hybrid model reaches the loss, so one that
+    autograd did not reach (a route that recorded no graph) raises."""
+    return grad_and_metrics(grpo_loss_fn, params, cfg, batch, rl)
 
 
 def grpo_dataflow(*, kl_coef: float = 0.0, **_) -> StageGraph:

@@ -60,6 +60,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert len(names) > 30, names\n"
+        "for n in ('repro_torch.rl.ppo', 'repro_torch.training.checkpoint',"
+        " 'repro_torch.core.recovery.snapshot', 'repro_torch.api.service',"
+        " 'repro_torch.autodiff', 'repro_torch.launch.serve'):\n"
+        "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

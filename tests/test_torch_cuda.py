@@ -739,3 +739,82 @@ def test_hybrid_forward_and_decode_on_card_match_cpu(cuda_device):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(torch.stack(steps, 1).cpu(), want,
                                atol=1e-4, rtol=1e-4)
+
+
+def _ppo_rows(n, L=20, seed=0):
+    rng = np.random.default_rng(seed)
+    mask = np.r_[np.zeros(5), np.ones(L - 5)].astype(np.float32)
+    return {"response": [rng.integers(3, 259, L) for _ in range(n)],
+            "logprob": [np.full(L, -5.5, np.float32)] * n,
+            "response_mask": [mask] * n,
+            "advantage": [(rng.standard_normal(L) * mask).astype(np.float32)
+                          for _ in range(n)],
+            "returns": [(rng.standard_normal(L) * mask).astype(np.float32)
+                        for _ in range(n)],
+            "values": [(0.1 * rng.standard_normal(L)).astype(np.float32)
+                       for _ in range(n)]}
+
+
+def test_ppo_grads_on_card_match_cpu(cuda_device):
+    """One PPO micro-batch of a reduced model, fp32 compute: the actor's
+    gradients (plain attention route, fused-loss kernels with per-token
+    advantages) and the critic's match the CPU's within 1e-4 relative; the
+    critic's lm_head gradient is zero; its values through the flash kernel
+    match the CPU's within 1e-4."""
+    from repro_torch.autodiff import grad_and_metrics
+    from repro_torch.engines import pack_rows
+    from repro_torch.models import init_params
+    from repro_torch.rl import ppo
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    actor = init_params(0, cfg, device="cpu")
+    critic = ppo.init_critic_params(torch.Generator().manual_seed(1), cfg)
+    rows = _ppo_rows(4)
+    rl = ppo.PPOConfig()
+    for fn, params, zero_unused in ((ppo.ppo_actor_loss_fn, actor, False),
+                                    (ppo.ppo_critic_loss_fn, critic, True)):
+        n = fused_rl_loss_bwd.launches
+        g_cpu, m_cpu = grad_and_metrics(fn, params, cfg,
+                                        pack_rows(rows, 24, "cpu"), rl,
+                                        zero_unused=zero_unused)
+        g_gpu, m_gpu = grad_and_metrics(fn, _to(params, cuda_device), cfg,
+                                        pack_rows(rows, 24, cuda_device), rl,
+                                        zero_unused=zero_unused)
+        assert fused_rl_loss_bwd.launches == n + (not zero_unused)
+        for k in m_cpu:
+            assert abs(float(m_gpu[k]) - float(m_cpu[k])) <= 1e-4 * (
+                1 + abs(float(m_cpu[k])))
+        for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+            assert float((a.cpu() - b).norm()
+                         / b.norm().clamp_min(1e-30)) < 1e-4
+    assert not g_gpu["backbone"]["lm_head"]["w"].any()
+    toks = pack_rows(rows, 24, "cpu")["tokens"]
+    n = flash_attention.launches
+    with torch.no_grad():
+        v_gpu = ppo.critic_forward(_to(critic, cuda_device), cfg,
+                                   toks.to(cuda_device))
+    assert flash_attention.launches == n + cfg.num_layers
+    v_cpu = ppo.critic_forward(critic, cfg, toks, use_kernels=False)
+    assert torch.allclose(v_gpu.cpu(), v_cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
+    """A TrainState on the card goes to disk through the host and comes
+    back on the card, bit for bit, with the ints as ints."""
+    from repro_torch.models import init_params
+    from repro_torch.training import (TrainState, restore_checkpoint,
+                                      save_checkpoint)
+    cfg = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size)
+    state = TrainState.create(init_params(0, cfg, device=cuda_device))
+    state.opt_state["count"] = 3
+    state = state._replace(step=3)
+    save_checkpoint(str(tmp_path / "ck"), state, step=3)
+    like = TrainState.create(init_params(1, cfg, device=cuda_device))
+    back, step = restore_checkpoint(str(tmp_path / "ck"), like)
+    assert step == 3 and back.step == 3 and back.opt_state["count"] == 3
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(tree_leaves(back.params), tree_leaves(state.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

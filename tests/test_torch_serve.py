@@ -255,7 +255,41 @@ def test_serve_main_on_cpu(engine, capsys):
     assert '"device": "cpu"' in capsys.readouterr().out
 
 
-def test_serve_fleet_not_ported_yet():
+def test_serve_fleet_not_ported_yet(capsys):
+    """The fleet that was refused before it was ported: two replicas
+    without faults answer every request, with no restart."""
+    import json
+
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--device", "cpu", "--replicas", "2"])
+    assert serve.main(["--device", "cpu", "--engine", "continuous",
+                       "--replicas", "2", "--requests", "3",
+                       "--max-new-tokens", "4"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["replicas"] == 2 and out["replica_restarts"] == 0
+    assert out["requests"] == 3
+
+
+def test_serve_fleet_requeues_crashed_requests():
+    """``--replicas 2 --crash-p`` on the reduced config: injected crashes
+    requeue the in-flight request and respawn the replica; every request
+    is answered exactly once, in order, and the restarts are counted."""
+    from types import SimpleNamespace
+
+    from repro_torch.data import PromptDataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size)
+    params = init_params(0, cfg, device="cpu")
+    prompts = PromptDataset(seed=0).prompts_for_step(0, 8)
+    args = SimpleNamespace(replicas=2, crash_p=0.25, fault_seed=1, slots=4,
+                           max_new_tokens=4, temperature=0.8, seed=0)
+    outputs, restarts = serve._serve_fleet(args, cfg, params, prompts,
+                                           ByteTokenizer(), "cpu")
+    assert restarts >= 1
+    assert [o["prompt"] for o in outputs] == [p["text"] for p in prompts]
+    assert all(1 <= len(o["response_ids"]) <= 4 for o in outputs)
+    assert all(0 <= t < cfg.vocab_size for o in outputs
+               for t in o["response_ids"])

@@ -97,19 +97,14 @@ def test_optimizer_step_leaves_receivers_and_snapshots_alone():
 
 
 def test_refusals_of_what_is_not_ported_yet(monkeypatch):
+    """The planner's options (ROADMAP §1 item 10) are refused, naming their
+    item; PPO and durable snapshots (items 8 and 9) no longer are."""
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(TrainerConfig(algorithm="ppo", **TINY), model_cfg=cfg)
-    tr = Trainer(TrainerConfig(**TINY), model_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tr.fit(resume="auto")
-    for kw in (dict(checkpoint_dir="x"), dict(auto_size_workers=True),
-               dict(elastic_interval_s=1.0)):
-        with pytest.raises(NotImplementedError, match="item 9|item 10"):
+    tr = Trainer(TrainerConfig(algorithm="ppo", **TINY), model_cfg=cfg)
+    assert "critic" in tr.engines
+    for kw in (dict(auto_size_workers=True), dict(elastic_interval_s=1.0)):
+        with pytest.raises(NotImplementedError, match="item 10"):
             Trainer(TrainerConfig(**TINY, **kw), model_cfg=cfg).fit()
-    for argv in (["--resume", "auto"], ["--checkpoint-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            train_launch.main(["--device", "cpu", *argv])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(TrainerConfig(**{**TINY, "device": "cuda"}), model_cfg=cfg)
@@ -134,7 +129,8 @@ COPIED = ["rl/reward.py", "engines/adapter.py",
           "core/supervision/supervisor.py", "core/obs/__init__.py",
           "core/obs/report.py", "core/obs/sampler.py",
           "core/workflow/__init__.py", "core/workflow/events.py",
-          "core/workflow/async_engine.py"]
+          "core/workflow/async_engine.py", "core/recovery/__init__.py",
+          "core/recovery/snapshot.py"]
 
 
 @pytest.mark.parametrize("path", COPIED)
