@@ -57,6 +57,18 @@ which raises on failure:
    shares;
 10. a ``torch.profiler`` trace of one actor update (forward, loss,
     backward, AdamW): device time by kernel and the device's idle share;
+10a. the planner (``core/planner``): the reduced Qwen profiled on the
+    card (``decode_attention`` and both loss kernels at the reduced
+    shape), the cost model's seconds on the card's figures (``HW()``)
+    beside phase 9's measured ones, a stage by stage and a decode-step
+    ratio, the measured reduced decode over its bound beside the
+    reference's 1.15, plans for a 128-card cluster; then ``Trainer.fit``
+    as in phase 9 with ``auto_size_workers`` and a live rebalance every
+    0.5 s, its worker cap reckoned from the card's memory: every sized
+    and resized count within the cap, ``actor_update`` at 1, the
+    controller stepped, the rows' ids below the vocab and logprobs finite
+    and at most 0, staleness at most 2, all five kernels launched; the
+    sized counts, every resize decision, samples/s and the peak;
 10b. one PPO micro-batch at that width: the actor's loss, stats and
     gradients through the loss kernels (per-token advantages) against the
     plain loss, the critic's gradients finite with its lm_head's exactly
@@ -68,11 +80,12 @@ which raises on failure:
     kernels, wall, samples/s, peak memory, stage busy shares and the
     ``values`` and ``critic_update`` stages' seconds;
 10d. durable snapshots at full width cut to 1 layer (GRPO, KL on,
-    baseline mode): an uninterrupted 4-step run, a 2-step run writing
-    snapshots, and a fresh trainer resuming from them to step 4; the
-    stitched metrics equal the uninterrupted run's (bit-identical or
-    not, and the largest relative difference, at most 1e-6), each
-    snapshot's, restore's and final dump's seconds and bytes;
+    baseline mode): an uninterrupted 4-step run, run twice, a 2-step run
+    writing snapshots, and a fresh trainer resuming from them to step 4;
+    the second uninterrupted run's metrics and the stitched run's equal
+    the first run's bit for bit (each comparison printed with its largest
+    relative difference), each snapshot's, restore's and final dump's
+    seconds and bytes;
 11. ``mamba_scan`` against its plain version in fp32 at the trainer's
     reference-inference rows (4 x 80, D=8192, N=16), one teacher-forced
     forward (1 x 80), the long prefill (B=1, S=2048) and two ragged
@@ -128,12 +141,13 @@ which raises on failure:
 26. a trace of a short StableLM serving run; then the weights are freed;
 27. a JSON line per kernel and, last, the device line.
 
-Phases 3, 4, 6b, 9, 10c, 10d, 12, 16, 18, 23 and 24 set the launch
-counts of the kernels they check to 0 just before they start and read them
-just after (phases 12 and 18 read after the teacher-forced forwards of
-phases 13 and 19). The kernel line's launches are the main paths' sums:
-the attention kernels over phases 3, 6b and 10c, the loss kernels over
-9 and 10c (``grpo_logprob`` over 9 and 10d), the scans over 16 and 23.
+Phases 3, 4, 6b, 9, 10a (its profile and its trainer each), 10c, 10d, 12,
+16, 18, 23 and 24 set the launch counts of the kernels they check to 0
+just before they start and read them just after (phases 12 and 18 read
+after the teacher-forced forwards of phases 13 and 19). The kernel line's
+launches are the main paths' sums: the attention kernels over phases 3,
+6b, 10a and 10c, the loss kernels over 9, 10a and 10c (``grpo_logprob``
+over 9, 10a and 10d), the scans over 16 and 23.
 """
 from __future__ import annotations
 
@@ -211,6 +225,14 @@ PPO_TRAIN_LAYERS = 1       # the PPO trainer's depth (width is full). At
 DURABLE_LAYERS = 1         # the durability phase's depth, steps and new
 DURABLE_STEPS = 4          # tokens a sample (full width: one actor state
 DURABLE_NEW = 32           # of params and two moments is 15.8 GB)
+PLANNER_ELASTIC_S = 0.5    # the planner phase's rebalance interval
+PLANNER_MARGIN = 0.10      # of the card's memory the planner phase keeps
+                           # for activations, KV caches and the allocator
+ACTOR_COPIES = 6           # model-sized fp32 tensors the actor holds at
+                           # its peak: params, two moments, summed and new
+                           # gradients, AdamW's temporaries (about 37 GB
+                           # at full width and 2 layers)
+PLANNER_CLUSTER = 128      # cards of the cluster the planner plans for
 
 
 def _import_port():
@@ -1033,10 +1055,12 @@ def _counters(*names):
     return {n: every[n] for n in names}
 
 
-def phase_trainer(torch, cfg2, smi, backend, kernels, **overrides):
+def phase_trainer(torch, cfg2, smi, backend, kernels, report=None,
+                  **overrides):
     """``Trainer.fit`` on the card; returns (trainer, launches of
     ``kernels``, each of which must have run). ``overrides`` replace
-    ``TrainerConfig`` fields (PPO: ``algorithm="ppo"``, ``kl_coef=0``).
+    ``TrainerConfig`` fields (PPO: ``algorithm="ppo"``, ``kl_coef=0``);
+    ``report``, a dict, receives the printed line's fields.
 
     lr 1e-6, a GRPO post-training rate for 7B models: at the CPU-scale
     default 3e-4, AdamW's first, sign-like steps on the KL term's
@@ -1091,7 +1115,7 @@ def phase_trainer(torch, cfg2, smi, backend, kernels, **overrides):
     sync = [v for v in tel["metrics"].get("weight_sync_seconds",
                                           {}).get("values", [])]
     stage_s = {r["stage"]: r["busy_s"] for r in tel["stages"]}
-    print(json.dumps({
+    line = {
         "phase": "trainer", "card": smi, "model": cfg2.name,
         "algorithm": tcfg.algorithm, "kl_coef": tcfg.kl_coef,
         "layers": cfg2.num_layers, "rollout_backend": backend,
@@ -1105,7 +1129,10 @@ def phase_trainer(torch, cfg2, smi, backend, kernels, **overrides):
         "instances": tel["instances"], "metrics": steps,
         **({"values_s": stage_s.get("values"),
             "critic_update_s": stage_s.get("critic_update"),
-            "critic_metrics": critic} if tcfg.algorithm == "ppo" else {})}))
+            "critic_metrics": critic} if tcfg.algorithm == "ppo" else {})}
+    print(json.dumps(line))
+    if report is not None:
+        report.update(line)
     return trainer, launches
 
 
@@ -1341,11 +1368,12 @@ def _snapshot_records(torch):
 
 def phase_durability(torch, cfg1, smi):
     """GRPO with KL at full width, cut to DURABLE_LAYERS layers, baseline
-    mode: an uninterrupted DURABLE_STEPS-step run; a run of half the steps
-    with snapshots (``checkpoint_interval_steps=0``: the run's start and
-    end); a fresh trainer that resumes from them (``fit(resume="auto")``)
-    to the last step. The stitched run's step metrics equal the
-    uninterrupted run's. Where the disk under the snapshot directory
+    mode: an uninterrupted DURABLE_STEPS-step run, twice; a run of half
+    the steps with snapshots (``checkpoint_interval_steps=0``: the run's
+    start and end); a fresh trainer that resumes from them
+    (``fit(resume="auto")``) to the last step. The second uninterrupted
+    run's step metrics equal the first's, and the stitched run's equal
+    the first's, bit for bit. Where the disk under the snapshot directory
     cannot hold the run's snapshots and dumps, the reduced trunk runs
     instead. Returns the launches of ``grpo_logprob``."""
     import shutil
@@ -1392,6 +1420,7 @@ def phase_durability(torch, cfg1, smi):
     t0 = time.monotonic()
     try:
         full = fit(cfg1, DURABLE_STEPS)
+        again = fit(cfg1, DURABLE_STEPS)
         half = fit(cfg1, DURABLE_STEPS // 2, checkpoint_dir=str(directory),
                    checkpoint_interval_steps=0)
         resumed = fit(cfg1, DURABLE_STEPS, resume="auto",
@@ -1405,14 +1434,23 @@ def phase_durability(torch, cfg1, smi):
     a, b = full.metrics, resumed.metrics
     if [m["step"] for m in a] != list(range(DURABLE_STEPS)) or \
             [m["step"] for m in b] != [m["step"] for m in a] or \
+            [m["step"] for m in again.metrics] != [m["step"] for m in a] or \
             b[:len(half.metrics)] != half.metrics:
         raise AssertionError(f"durability: steps {a} vs {b}")
-    rel = max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
-              for x, y in zip(a, b) for k in keys)
-    identical = all(x[k] == y[k] for x, y in zip(a, b) for k in keys)
-    if not rel <= 1e-6 or resumed.samples_trained != full.samples_trained:
-        raise AssertionError(f"durability: resumed run differs by {rel} "
-                             f"relative: {a} vs {b}")
+
+    def compare(other):
+        return {"bit_identical": all(x[k] == y[k] for x, y in zip(a, other)
+                                     for k in keys),
+                "max_rel_diff": max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
+                                    for x, y in zip(a, other) for k in keys)}
+    rerun, resume = compare(again.metrics), compare(b)
+    if not rerun["bit_identical"]:
+        raise AssertionError(f"durability: a second uninterrupted run "
+                             f"differs: {rerun}: {a} vs {again.metrics}")
+    if not resume["bit_identical"] or \
+            resumed.samples_trained != full.samples_trained:
+        raise AssertionError(f"durability: the resumed run differs: "
+                             f"{resume}: {a} vs {b}")
     if grpo_logprob.launches == 0:
         raise AssertionError("durability: grpo_logprob never ran")
     print(json.dumps({
@@ -1420,11 +1458,220 @@ def phase_durability(torch, cfg1, smi):
         "layers": cfg1.num_layers, "width": width,
         **({"why": why} if why else {}), "card": smi,
         "disk_free_gb": free / 1e9, "state_gb": state_bytes / 1e9,
-        "steps": DURABLE_STEPS, "bit_identical": identical,
-        "max_rel_diff": rel, "wall_s": wall,
+        "steps": DURABLE_STEPS, "rerun_vs_first": rerun,
+        "resumed_vs_first": resume, "wall_s": wall,
         "grpo_logprob_launches": grpo_logprob.launches,
         "records": records, "metrics": b}))
     return grpo_logprob.launches
+
+
+def planner_inputs(torch, trainer):
+    """What the planner phase reads of phase 9's run, taken while its
+    trainer lives: the measured seconds a row of each stage (the live
+    registry), the cost model's for the same graph and engines, the
+    continuous engine's decode-step and prefill seconds, the run's peak
+    memory (``phase_trainer`` reset it) and the model's parameter
+    count."""
+    from repro_torch.core.obs import get_registry
+    from repro_torch.core.planner import (estimate_stage_costs,
+                                          stage_latencies_from_registry)
+    from repro_torch.core.workflow import build_dataflow
+    from repro_torch.models import count_params
+    reg, t = get_registry(), trainer.tcfg
+    graph = build_dataflow(t.algorithm, kl_coef=t.kl_coef)
+    return {
+        "tcfg": t, "params": count_params(trainer.train_engine.params),
+        "peak": torch.cuda.max_memory_allocated(),
+        "analytic": estimate_stage_costs(graph, trainer.engines,
+                                         seq_len=t.seq_len,
+                                         group_size=t.group_size),
+        "measured": stage_latencies_from_registry(reg),
+        "decode": reg.get("rollout_decode_step_seconds").summary(engine="cb"),
+        "prefill": reg.get("rollout_prefill_seconds").summary(engine="cb")}
+
+
+def _planner_spies():
+    """Wrap ``StageRunner`` and ``ElasticController`` to record the sized
+    worker counts, every resize decision, the controller's steps and the
+    rows the generate stage writes; returns (records, undo)."""
+    import numpy as np
+
+    from repro_torch.core.planner import ElasticController
+    from repro_torch.core.workflow import StageRunner
+    rec = {"sized": None, "costs": None, "resizes": [], "steps": 0,
+           "actions": [], "rows": 0, "bad_rows": [], "t0": time.monotonic()}
+    init, resize = StageRunner.__init__, StageRunner._resize_stage
+    step, put = ElasticController.step, StageRunner._put_rows
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        rec["sized"] = dict(self._desired)
+        rec["costs"] = {n: c.seconds_per_row
+                        for n, c in (self.stage_costs or {}).items()}
+        rec["vocab"] = self.engines["rollout"].cfg.vocab_size
+
+    def spy_resize(self, name, delta):
+        ok = resize(self, name, delta)
+        rec["resizes"].append({"s": time.monotonic() - rec["t0"],
+                               "stage": name, "delta": delta,
+                               "applied": ok, "workers": self._desired[name]})
+        return ok
+
+    def spy_step(self):
+        out = step(self)
+        rec["steps"] += 1
+        rec["actions"] += [{"s": time.monotonic() - rec["t0"], **a}
+                           for a in out]
+        return out
+
+    def spy_put(self, spec, out_cols, rows, *a, **k):
+        for r in rows:
+            ids = np.asarray(r["response_ids"])
+            lp = np.asarray(r["logprob"])[np.asarray(r["response_mask"]) > 0]
+            rec["rows"] += 1
+            if not ((ids >= 0).all() and (ids < rec["vocab"]).all()
+                    and np.isfinite(lp).all() and (lp <= 0).all()):
+                rec["bad_rows"].append({"ids": ids.tolist(),
+                                        "logprob": lp.tolist()})
+        return put(self, spec, out_cols, rows, *a, **k)
+
+    StageRunner.__init__ = spy_init
+    StageRunner._resize_stage = spy_resize
+    ElasticController.step = spy_step
+    StageRunner._put_rows = spy_put
+
+    def undo():
+        StageRunner.__init__, StageRunner._resize_stage = init, resize
+        ElasticController.step, StageRunner._put_rows = step, put
+    return rec, undo
+
+
+def phase_planner(torch, cfg, cfg2, smi, seen):
+    """The planner on the card (phase 10a). (a) The cost model beside the
+    card: ``make_profile_fn`` profiles the reduced Qwen (its
+    ``profile_reduced_blocks`` drives ``decode_attention`` and both loss
+    kernels); ``CostOracle(cfg2, HW())`` at phase 9's shapes beside phase
+    9's measured seconds; ``estimate_stage_costs``' seconds a row beside
+    the measured ones, with their ratio; the measured reduced decode step
+    over its bound beside the reference's ``eff``; a plan for a cluster of
+    PLANNER_CLUSTER cards, analytic and hybrid. No bar on the ratios. (b)
+    ``Trainer.fit`` at phase 9's settings with ``auto_size_workers`` and
+    live rebalance every PLANNER_ELASTIC_S, its worker cap the count of
+    rollout workers whose weight copies fit on the card, reckoned by
+    count and by phase 9's peak. Returns the launches of (b); the
+    profiler's, at its reduced shape, are printed but not returned."""
+    from repro_torch.core.planner import (HW, CostOracle, Workload,
+                                          make_profile_fn, plan_resources)
+    hw = HW()
+    props = torch.cuda.get_device_properties(0)
+    t = seen["tcfg"]
+    prof_counters = _counters("decode_attention", "fused_rl_loss_fwd",
+                              "fused_rl_loss_bwd")
+    for c in prof_counters.values():
+        c.launches = 0
+    w = Workload(prompts_per_step=64, group_size=4, num_steps=2)
+    pf = make_profile_fn(cfg, w, hw)
+    torch.cuda.synchronize()
+    prof_launches = {n: c.launches for n, c in prof_counters.items()}
+    if min(prof_launches.values()) == 0:
+        raise AssertionError(f"planner profile: a kernel never ran: "
+                             f"{prof_launches}")
+    oracle = CostOracle(cfg2, hw)
+    prompt_len = t.seq_len - t.max_new_tokens
+    predicted = {
+        "decode_token_s": oracle.decode_token_s(t.cb_slots, t.seq_len, 1),
+        "prefill_s": oracle.prefill_s(t.group_size, prompt_len, 1),
+        "train_microbatch_s": oracle.train_microbatch_s(
+            t.train_micro_batch, t.seq_len, 1)}
+    measured = {
+        "decode_step_p50_s": seen["decode"]["p50"],
+        "prefill_mean_s": seen["prefill"]["mean"],
+        "train_microbatch_s": seen["measured"].get("actor_update", math.nan)
+        * t.train_micro_batch}
+    rows = {n: {"analytic_s": c.seconds_per_row, "source": c.source,
+                "measured_s": seen["measured"].get(n),
+                "measured_over_analytic":
+                    seen["measured"][n] / c.seconds_per_row
+                    if n in seen["measured"] else None}
+            for n, c in seen["analytic"].items()}
+    plans = {}
+    for name, kw in (("analytic", {}),
+                     ("hybrid", {"profile_fn": pf, "profile_top_k": 3})):
+        pr = plan_resources(cfg, PLANNER_CLUSTER, w, hw=hw, **kw)
+        plans[name] = {"plan": dataclasses.asdict(pr.plan),
+                       "samples_per_s": pr.throughput,
+                       "candidates": pr.candidates_scored}
+    raw = {k: v for k, v in pf.raw.items() if k != "reduced_cfg"}
+    print(json.dumps({
+        "phase": "planner_model", "card": smi, "device": props.name,
+        "device_memory_bytes": props.total_memory,
+        "hw": dataclasses.asdict(hw), "reduced_profile": raw,
+        "profile_launches": prof_launches,
+        "reduced_decode_over_bound": pf.decode_over_bound,
+        "reference_eff": 1.15, "model": cfg2.name,
+        "layers": cfg2.num_layers, "predicted": predicted,
+        "measured": measured,
+        "measured_over_predicted": {
+            "decode": measured["decode_step_p50_s"]
+            / predicted["decode_token_s"],
+            "prefill": measured["prefill_mean_s"] / predicted["prefill_s"],
+            "train_microbatch": measured["train_microbatch_s"]
+            / predicted["train_microbatch_s"]},
+        "stage_seconds_per_row": rows, "plans": plans}))
+
+    # each rollout worker holds its own device copy of the weights. By
+    # count: the actor's copies, the KL reference's and a swap's new one
+    # beside the workers'; by phase 9's peak: one more copy a worker than
+    # its rollout_workers. The cap is the smaller, within the card's
+    # memory less PLANNER_MARGIN.
+    copy = 4 * seen["params"]                 # one fp32 copy of the model
+    usable = props.total_memory * (1 - PLANNER_MARGIN)
+    by_count = int((usable - (ACTOR_COPIES + 2) * copy) // copy)
+    by_peak = t.rollout_workers + int((usable - seen["peak"]) // copy)
+    cap = max(1, min(by_count, by_peak))
+    kernels = ("flash_attention", "decode_attention", "grpo_logprob",
+               "fused_rl_loss_fwd", "fused_rl_loss_bwd")
+    rec, undo = _planner_spies()
+    run = {}
+    try:
+        trainer, launches = phase_trainer(
+            torch, cfg2, smi, "continuous", kernels, report=run,
+            auto_size_workers=True, elastic_interval_s=PLANNER_ELASTIC_S,
+            max_stage_workers=cap)
+    finally:
+        undo()
+    sized = rec["sized"] or {}
+    counts = list(sized.values()) + [r["workers"] for r in rec["resizes"]]
+    if not sized or sized.get("actor_update") != 1 or \
+            not all(1 <= n <= cap for n in counts):
+        raise AssertionError(f"planner: counts out of [1, {cap}]: {sized} "
+                             f"{rec['resizes']}")
+    if rec["steps"] == 0:
+        raise AssertionError("planner: the elastic controller never stepped")
+    if rec["bad_rows"] or rec["rows"] == 0:
+        raise AssertionError(f"planner: {rec['rows']} rows, bad: "
+                             f"{rec['bad_rows'][:2]}")
+    print(json.dumps({
+        "phase": "planner_trainer", "card": smi, "model": cfg2.name,
+        "layers": cfg2.num_layers,
+        "memory_reckoning": {"params": seen["params"],
+                             "copy_gb": copy / 1e9,
+                             "device_gb": props.total_memory / 1e9,
+                             "margin": PLANNER_MARGIN,
+                             "actor_copies": ACTOR_COPIES,
+                             "phase9_peak_gb": seen["peak"] / 1e9,
+                             "phase9_rollout_workers": t.rollout_workers,
+                             "by_count": by_count, "by_peak": by_peak,
+                             "max_stage_workers": cap},
+        "stage_costs_s_per_row": rec["costs"], "sized": sized,
+        "resizes": rec["resizes"], "controller_steps": rec["steps"],
+        "actions": rec["actions"], "rows_checked": rec["rows"],
+        "samples": run["samples"], "samples_per_s": run["samples_per_s"],
+        "max_staleness": run["max_staleness"],
+        "peak_mem_gb": run["peak_mem_gb"], "launches": launches}))
+    del trainer
+    _release(torch)
+    return launches
 
 
 def profile_actor_update(torch, trainer):
@@ -1965,10 +2212,17 @@ def main():
     for name in ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd"):
         launches[name] = train_launches[name]
 
+    seen = planner_inputs(torch, trainer)
+
     # -- 10. where an actor update's device time goes ------------------------
     profile_actor_update(torch, trainer)
     del trainer
     _release(torch)
+
+    # -- 10a. the planner: its cost model beside the card, then sizing ------
+    planner_launches = phase_planner(torch, cfg, cfg2, smi, seen)
+    for name, n in planner_launches.items():
+        launches[name] += n
 
     # -- 10b. one PPO micro-batch at full width -------------------------------
     phase_ppo_microbatch(torch, cfg2)

@@ -46,8 +46,9 @@ class AsyncFlowService:
         """specs: {"train": {"engine": "torch_train", ...kwargs},
                    "rollout": {"engine": "torch_rollout", ...}}
         (``torch_critic`` for a PPO critic). The rollout engine takes
-        ``device`` (``cuda`` unless given); the train and critic engines
-        run where their initial parameters live."""
+        ``device`` (``cuda`` unless given) and the one shape of its
+        reference calls (``ref_rows``, ``ref_len``); the train and critic
+        engines run where their initial parameters live."""
         for name, spec in specs.items():
             kw = dict(spec)
             engine = kw.pop("engine")

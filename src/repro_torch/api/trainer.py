@@ -13,12 +13,11 @@ the service API) and compiles it onto one shared TransferQueue via
 advantage, actor/critic update) streams as its own pipeline stage. It runs
 on ``cuda`` unless ``device="cpu"`` is given. With ``checkpoint_dir`` the
 run writes durable snapshots, and ``fit(resume=...)`` cold-resumes from
-them.
-
-Not ported yet, and refused with ``NotImplementedError``: the planner's
-``auto_size_workers``/``elastic_interval_s`` (ROADMAP §1 item 10). The
-reference's ``use_pallas`` has no counterpart: the port's kernels serve
-CUDA tensors and their plain versions CPU tensors.
+them. ``auto_size_workers`` sizes the stages' worker pools from the
+planner's cost model (``core/planner``), and ``elastic_interval_s > 0``
+rebalances them live. The reference's ``use_pallas`` has no counterpart:
+the port's kernels serve CUDA tensors and their plain versions CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -81,9 +80,9 @@ class TrainerConfig:
     channel_bandwidth_gbps: float = 0.0  # simulated host-net weight path
     metrics_jsonl: str = ""            # periodic metrics snapshots (JSONL)
     metrics_interval_s: float = 0.25   # sampler cadence when enabled
-    auto_size_workers: bool = False    # planner sizing (ROADMAP §1 item 10)
-    elastic_interval_s: float = 0.0    # live rebalance (item 10)
-    max_stage_workers: int = 8
+    auto_size_workers: bool = False    # planner-size stages left at 0
+    elastic_interval_s: float = 0.0    # >0: live rebalance cadence (s)
+    max_stage_workers: int = 8         # auto-size / elastic pool cap
     # -- supervision & fault tolerance --------------------------------
     supervise: bool = True             # generator-fleet crash recovery
     max_replica_restarts: int = 8      # fleet-wide respawn budget
@@ -119,6 +118,7 @@ class Trainer:
             ref_params=ref_params, chunk_tokens=tcfg.chunk_tokens,
             backend=tcfg.rollout_backend, cb_slots=tcfg.cb_slots,
             cb_page_size=tcfg.cb_page_size, cb_seed=tcfg.seed,
+            ref_rows=tcfg.train_micro_batch, ref_len=tcfg.seq_len,
             device=self.device)
         opt = OptimizerConfig(lr=tcfg.lr, warmup_steps=2,
                               total_steps=tcfg.num_steps,

@@ -32,10 +32,6 @@ Workflow modes (baseline / streaming / async), the staleness gate,
 delayed parameter update and the per-mode prompt release schedule are
 owned by the runner, so every dataflow — built-in or user-registered via
 :func:`register_dataflow` — inherits the paper's §4.2 machinery.
-
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the planner's worker sizing (``auto_size_workers``,
-``elastic_interval_s``, ROADMAP §1 item 10).
 """
 from __future__ import annotations
 
@@ -269,10 +265,6 @@ class StageRunner:
         continues the snapshot's uid space (caller restores the engine
         states before constructing the runner)."""
         graph.validate()
-        if cfg.auto_size_workers or cfg.elastic_interval_s > 0:
-            raise NotImplementedError(
-                "auto_size_workers / elastic_interval_s: the planner's "
-                "stage sizing is not ported yet (ROADMAP §1 item 10)")
         self.cfg = cfg
         self.graph = graph
         self.engines = dict(engines)
@@ -347,6 +339,19 @@ class StageRunner:
             else:
                 self._desired[name] = spec.num_workers or 1
         self.stage_costs = None
+        if cfg.auto_size_workers:
+            from repro_torch.core.planner.elastic import (auto_size_workers,
+                                                          estimate_stage_costs)
+            self.stage_costs = estimate_stage_costs(
+                graph, self.engines,
+                seq_len=int(getattr(driver_engine, "seq_len", 32)),
+                group_size=cfg.group_size)
+            sized = auto_size_workers(graph, self.stage_costs,
+                                      max_workers=cfg.max_stage_workers)
+            for name, spec in graph.stages.items():
+                if spec.num_workers == 0 and not spec.drives_steps \
+                        and spec.kind in ("generate", "transform"):
+                    self._desired[name] = sized[name]
         self.n_gen_workers = self._desired[self.gen_stage.name]
         self._elastic = None
 
@@ -660,6 +665,9 @@ class StageRunner:
                     return     # declared dead; lease already requeued
                 handle.beat()
             if self._pool_shrunk(spec.name):
+                # the receiver stays listed for the channel's bookkeeping;
+                # its device copy of the weights goes with the worker
+                recv.params = None
                 return
             # prompts are fetched under a lease: until this worker acks,
             # the supervisor can requeue them (front of ready set) if the
@@ -808,6 +816,19 @@ class StageRunner:
                 self._write_snapshot(self._train_step)  # clean shutdown
             return
 
+    @staticmethod
+    def _in_row_order(idxs, batch):
+        """The step driver's rows in the order they were produced (by row
+        index), not the order they became ready: its gradient sums over
+        rows, and which row's last column lands first follows the
+        upstream stages' timing, so two runs of one seed could add the
+        same rows in another order."""
+        order = sorted(range(len(idxs)), key=idxs.__getitem__)
+        if order == list(range(len(idxs))):
+            return idxs, batch
+        return ([idxs[k] for k in order],
+                {c: [v[k] for k in order] for c, v in batch.items()})
+
     def _driver_loop(self) -> None:
         """The step-driving consumer: defines training steps, publishes
         weights, records observed staleness. With a checkpointer attached
@@ -853,6 +874,7 @@ class StageRunner:
                         idxs = [idxs[k] for k in keep]
                         batch = {c: [v[k] for k in keep]
                                  for c, v in batch.items()}
+                idxs, batch = self._in_row_order(idxs, batch)
                 if lease is not None:
                     # tracked before the update: a crash inside fn()
                     # leaves the lease unacked, so recovery requeues
@@ -1115,7 +1137,13 @@ class StageRunner:
             for name, n in self._desired.items():
                 self._active[name] = n
                 self._g_workers.labels(stage=name).set(n)
-        monitor = None                    # elastic_interval_s is refused
+        monitor = None
+        if self.cfg.elastic_interval_s > 0:
+            from repro_torch.core.planner.elastic import ElasticController
+            self._elastic = ElasticController(
+                self.graph, self.registry, self._desired, self._resize_stage,
+                max_workers=self.cfg.max_stage_workers)
+            monitor = threading.Thread(target=self._elastic_loop, daemon=True)
         super_mon = None
         if self._supervisor is not None:
             super_mon = threading.Thread(

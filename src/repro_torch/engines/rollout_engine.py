@@ -52,7 +52,8 @@ class RolloutEngine(RLAdapter):
                  ref_params=None, chunk_tokens: int = 0,
                  backend: str = "fixed", cb_slots: int = 4,
                  cb_page_size: int = 8, cb_max_len: int = 0,
-                 cb_seed: int = 0, device=None):
+                 cb_seed: int = 0, ref_rows: int, ref_len: int,
+                 device=None):
         """ref_params: frozen reference policy — enables the
         ``compute_log_prob`` reference-inference task (per-token ref
         logprobs for the KL penalty).
@@ -66,6 +67,13 @@ class RolloutEngine(RLAdapter):
         re-prefilling the whole prefix. Sampling there is keyed per
         (cb_seed, sequence, position), so trajectories are independent of
         batch composition — fused and staged runs match by construction.
+
+        ref_rows, ref_len: the one shape of a reference-inference call
+        (``ref_rows`` sequences padded to ``ref_len`` tokens; a longer
+        sequence goes alone at its own length), so that a sequence's
+        reference logprobs do not depend on which others the stage's
+        timing batched it with. No default: the caller states the shape
+        its stage runs (the Trainer: its micro-batch and ``seq_len``).
 
         device: where sampling and reference inference run (``cuda``
         unless the caller passes another); params and ``ref_params`` live
@@ -84,6 +92,8 @@ class RolloutEngine(RLAdapter):
         self.cb_page_size = cb_page_size
         self.cb_max_len = cb_max_len
         self.cb_seed = cb_seed
+        self.ref_rows = max(1, int(ref_rows))
+        self.ref_len = int(ref_len)
         self.device = resolve_device(device)
         self._cb = None                  # lazy ContinuousBatchingEngine
         self._groups: dict = {}          # fused path: gid -> finished members
@@ -264,21 +274,39 @@ class RolloutEngine(RLAdapter):
         (position 0 gets 0.0 — no prediction for the first token): one
         forward through the flash or ``mamba_scan`` kernel, then
         ``token_logprobs`` through the ``grpo_logprob`` kernel (their plain
-        versions on the CPU)."""
+        versions on the CPU).
+
+        Every call has one shape: ``ref_rows`` sequences padded to
+        ``ref_len`` tokens, and a longer sequence goes alone at its own
+        length. On the card a row's result depends on the shape of the
+        call it is in (the products' and the vocab pass's tiling follow
+        the rows and the padded length) but not on the other rows, and the
+        batches the reference stage receives follow the run's timing; with
+        the shape fixed, two runs of one seed give each sequence the same
+        logprobs."""
         from repro_torch.models import forward
         from repro_torch.rl.loss import token_logprobs
         params = self.ref_params if params is None else params
-        arrs = [np.asarray(t) for t in responses]
-        S = max(len(a) for a in arrs)
-        toks = np.zeros((len(arrs), S), np.int64)
-        for i, a in enumerate(arrs):
-            toks[i, :len(a)] = a
-        toks = torch.from_numpy(toks).to(self.device)
-        logits, _ = forward(params, self.cfg, {"tokens": toks})
-        lp, _ = token_logprobs(logits[:, :-1], toks[:, 1:])
-        lp = lp.cpu().numpy()
-        return [np.concatenate([[0.0], lp[i, :len(a) - 1]]).astype(
-            np.float32) for i, a in enumerate(arrs)]
+        arrs = [np.asarray(t, np.int64) for t in responses]
+        out = [np.zeros(len(a), np.float32) for a in arrs]
+        fits = [i for i, a in enumerate(arrs) if len(a) <= self.ref_len]
+        calls = [(fits[k:k + self.ref_rows], self.ref_rows, self.ref_len)
+                 for k in range(0, len(fits), self.ref_rows)]
+        calls += [([i], 1, len(a)) for i, a in enumerate(arrs)
+                  if len(a) > self.ref_len]
+        for idx, rows, S in calls:
+            if S < 2:
+                continue
+            toks = np.zeros((rows, S), np.int64)
+            for r, i in enumerate(idx):
+                toks[r, :len(arrs[i])] = arrs[i]
+            toks = torch.from_numpy(toks).to(self.device)
+            logits, _ = forward(params, self.cfg, {"tokens": toks})
+            lp, _ = token_logprobs(logits[:, :-1], toks[:, 1:])
+            lp = lp.cpu().numpy()
+            for r, i in enumerate(idx):
+                out[i][1:] = lp[r, :len(arrs[i]) - 1]
+        return out
 
     def compute_log_prob(self, batch, *, params=None, **kw):
         """Stage verb (reference inference): writes ``ref_logprob``."""

@@ -1,5 +1,6 @@
-from repro_torch.models.model import (count_params, decode_step, forward,
-                                      init_cache, init_params)
+from repro_torch.models.model import (count_params, decode_step,
+                                      decode_window, forward, init_cache,
+                                      init_params)
 
 __all__ = ["init_params", "forward", "decode_step", "init_cache",
-           "count_params"]
+           "decode_window", "count_params"]

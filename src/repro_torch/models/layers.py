@@ -127,9 +127,39 @@ def init_embedding(gen, vocab, d, dtype=torch.float32):
     return {"table": normal_init(gen, (vocab, d), 0.02, dtype)}
 
 
+class _Gather(torch.autograd.Function):
+    """``table[tokens]`` whose backward adds each token id's rows in the
+    order they occur: a stable sort brings equal ids together, a segment
+    sum adds each run front to back into the run's first position (the
+    other positions' segments are empty, so zero), and the sums are added
+    into a zero table. Each id gets one nonzero addend, so the order of
+    those adds does not reach the bits, and nothing waits on the host.
+    The plain gather's backward (``index_put_`` with accumulate) adds an
+    id's rows in an order that can differ between two calls on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        ids, order = torch.sort(tokens.reshape(-1), stable=True)
+        g = grad.reshape(ids.numel(), -1)[order]
+        pos = torch.arange(ids.numel(), device=ids.device)
+        first = torch.searchsorted(ids, ids)
+        end = torch.searchsorted(ids, ids, right=True)
+        lengths = torch.where(first == pos, end - pos, 0)
+        sums = torch.segment_reduce(g, "sum", lengths=lengths, unsafe=True)
+        out = grad.new_zeros(ctx.rows, g.shape[1])
+        return out.index_put_((ids,), sums, accumulate=True), None
+
+
 def embed(p, tokens, compute_dtype=torch.bfloat16):
     # gather, then cast: the same values as casting the whole table first
-    return p["table"][tokens].to(compute_dtype)
+    return _Gather.apply(p["table"], tokens).to(compute_dtype)
 
 
 def unembed(p, x, compute_dtype=torch.bfloat16):

@@ -58,5 +58,20 @@ def decode_step(params, cfg, cache, token, pos, *, ring=False):
     return transformer.decode_lm(params, cfg, cache, token, pos, ring=ring)
 
 
+def decode_window(cfg, shape_name: str) -> tuple[int, bool]:
+    """(cache length, ring?) policy for a decode input shape.
+
+    long_500k on dense archs uses the sliding-window variant
+    (cfg.long_context_window ring buffer).
+    """
+    from repro_torch.configs.base import INPUT_SHAPES
+    shp = INPUT_SHAPES[shape_name]
+    if cfg.arch_type == "ssm":
+        return 1, False  # state caches carry no seq dim; length unused
+    if shp.name == "long_500k" and cfg.arch_type not in ("hybrid",):
+        return cfg.long_context_window, True
+    return shp.seq_len, False
+
+
 def count_params(params) -> int:
     return sum(int(t.numel()) for t in tree_leaves(params))

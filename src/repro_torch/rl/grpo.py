@@ -21,6 +21,8 @@ from repro_torch.core.workflow.stage_graph import (StageGraph, StageSpec,
                                                    register_dataflow)
 from repro_torch.models import forward
 from repro_torch.rl.loss import fused_actor_loss
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.train_state import TrainState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +66,16 @@ def grpo_loss_fn(params, cfg, batch, rl: GRPOConfig, ref_logprob=None):
         entropy_coef=rl.entropy_coef)
     loss = actor_loss + aux
     return loss, {"loss": loss, **stats}
+
+
+def grpo_train_step(state: TrainState, cfg, rl: GRPOConfig,
+                    opt_cfg: OptimizerConfig, batch):
+    """One GRPO update: gradients, then AdamW. Returns (new_state,
+    metrics)."""
+    grads, metrics = grpo_grad_step(state.params, cfg, rl, batch)
+    new_state, gnorm = state.apply_gradients(grads, opt_cfg)
+    metrics["grad_norm"] = gnorm
+    return new_state, metrics
 
 
 def grpo_grad_step(params, cfg, rl: GRPOConfig, batch):

@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert len(names) > 30, names\n"
         "for n in ('repro_torch.rl.ppo', 'repro_torch.training.checkpoint',"
         " 'repro_torch.core.recovery.snapshot', 'repro_torch.api.service',"
-        " 'repro_torch.autodiff', 'repro_torch.launch.serve'):\n"
+        " 'repro_torch.autodiff', 'repro_torch.launch.serve',"
+        " 'repro_torch.core.planner.profiling'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -48,7 +48,8 @@ def test_init_engines_takes_the_ports_registered_names():
     svc = AsyncFlowService()
     svc.init_engines({
         "rollout": {"engine": "torch_rollout", "cfg": cfg, "group_size": 2,
-                    "max_new_tokens": 4, "device": "cpu"},
+                    "max_new_tokens": 4, "ref_rows": 4, "ref_len": 24,
+                    "device": "cpu"},
         "actor": {"engine": "torch_train", "cfg": cfg,
                   "init_params": params, "algorithm": "ppo",
                   "global_batch": 4, "seq_len": 24},
@@ -87,7 +88,7 @@ def test_service_custom_stage_registration():
                           prompts_per_step=2, group_size=2, num_steps=1)
     engines = {
         "rollout": RolloutEngine(cfg, group_size=2, max_new_tokens=4,
-                                 device="cpu"),
+                                 ref_rows=4, ref_len=24, device="cpu"),
         "actor": TrainEngine(cfg, params, global_batch=4, seq_len=24)}
     r = svc.run_dataflow(graph, wcfg,
                          lambda s: PromptDataset(seed=0).prompts_for_step(

@@ -218,7 +218,7 @@ def test_rollout_reward_and_ref_logprob_verbs_match_reference():
     ref_cfg, ref_params, cfg = _setup()
     ref_eng = JaxRolloutEngine(ref_cfg, group_size=2, ref_params=ref_params)
     eng = RolloutEngine(cfg, group_size=2, ref_params=_port_params(ref_params),
-                        device="cpu")
+                        ref_rows=4, ref_len=24, device="cpu")
     rng = np.random.default_rng(4)
     resp = [np.asarray(list(b"12") + [10], np.int32) + 3,
             rng.integers(3, 259, 5).astype(np.int32),
@@ -241,3 +241,69 @@ def test_rollout_reward_and_ref_logprob_verbs_match_reference():
     for a, b in zip(lp, lp_ref):
         assert a.dtype == np.float32 and a.shape == b.shape and a[0] == 0.0
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_embedding_gather_backward_is_deterministic():
+    """The embedding's gather adds each token id's rows in the order they
+    occur (sort, then segment sum): bit-identical across calls, within
+    1e-6 relative of autograd's own backward of the plain gather, the same
+    forward values, no graph without grad, and the table's last row (the
+    last segment) reached."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(300, 64, generator=gen)
+    tokens = torch.randint(0, 40, (16, 48), generator=gen)   # many repeats
+    tokens[3, 5] = tokens[9, 0] = 299
+    up = torch.randn(16, 48, 64, generator=gen)
+
+    def grad(fn):
+        t = table.detach().requires_grad_()
+        out = fn(t)
+        return out, torch.autograd.grad(out, t, up)[0]
+    (y1, a), (_, b) = (grad(lambda t: layers._Gather.apply(t, tokens))
+                       for _ in range(2))
+    y0, plain = grad(lambda t: t[tokens])
+    assert torch.equal(y1, y0)
+    assert torch.equal(a, b)
+    assert float((a - plain).abs().max()) <= 1e-6 * float(plain.abs().max())
+    assert not a[40:299].any() and a[299].any()
+    p = {"table": table.detach().requires_grad_()}
+    with torch.no_grad():
+        y = layers.embed(p, tokens)
+    assert y.grad_fn is None and torch.equal(y, table[tokens].bfloat16())
+    assert layers.embed(p, tokens).grad_fn is not None
+
+
+@pytest.mark.parametrize("ref_rows,ref_len", [(1, 0), (3, 24)])
+def test_reference_logprobs_do_not_depend_on_the_batch(ref_rows, ref_len):
+    """The reference stage's batches follow the run's timing, so every
+    reference call has one shape (``ref_rows`` sequences padded to
+    ``ref_len``; a longer sequence alone): a sequence gets the same bytes
+    in any batch, and the reference's values."""
+    ref_cfg, ref_params, cfg = _setup()
+    eng = RolloutEngine(cfg, ref_params=_port_params(ref_params),
+                        ref_rows=ref_rows, ref_len=ref_len, device="cpu")
+    rows = _rows(5, seed=4)["response"]
+    rows.append(np.random.default_rng(5).integers(3, 259, 30))  # > ref_len
+    whole = eng._ref_logprobs(rows)
+    parts = eng._ref_logprobs(rows[:2]) + eng._ref_logprobs(rows[2:])
+    alone = [eng._ref_logprobs([r])[0] for r in rows]
+    for a, b, c, r in zip(whole, parts, alone, rows):
+        assert a.shape == (len(r),) and a[0] == 0.0
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+    ref = JaxRolloutEngine(ref_cfg, ref_params=ref_params)
+    want = ref.compute_log_prob({"response": rows})["updates"]["ref_logprob"]
+    for a, b in zip(whole, want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=1e-4)
+
+
+def test_step_driver_takes_its_rows_in_row_order():
+    """The step driver hands its verb the rows by row index, whatever
+    order they became ready in."""
+    from repro_torch.core.workflow import StageRunner
+    idxs, batch = StageRunner._in_row_order(
+        [7, 2, 5], {"response": ["c", "a", "b"], "advantage": [3, 1, 2]})
+    assert idxs == [2, 5, 7]
+    assert batch == {"response": ["a", "b", "c"], "advantage": [1, 2, 3]}
+    same = {"response": ["a"]}
+    assert StageRunner._in_row_order([4], same) == ([4], same)

@@ -1,8 +1,8 @@
 """The port's training workflow end to end on the CPU: ``Trainer.fit`` in
-every mode and on both rollout backends, with and without the KL stage;
-the weight path's aliasing rules; the refusals of what is not ported yet;
-and the framework-free modules, which the port copies with only their
-import paths changed."""
+every mode and on both rollout backends, with and without the KL stage,
+and with the planner's sizing and live rebalance; the weight path's
+aliasing rules; the refusals; and the framework-free modules, which the
+port copies with only their import paths changed."""
 import dataclasses
 import math
 import re
@@ -97,19 +97,74 @@ def test_optimizer_step_leaves_receivers_and_snapshots_alone():
 
 
 def test_refusals_of_what_is_not_ported_yet(monkeypatch):
-    """The planner's options (ROADMAP §1 item 10) are refused, naming their
-    item; PPO and durable snapshots (items 8 and 9) no longer are."""
+    """PPO (item 8) builds its critic and the planner's options (item 10)
+    train every step (the next test); what is refused is CUDA where there
+    is none."""
     cfg = _cfg()
     tr = Trainer(TrainerConfig(algorithm="ppo", **TINY), model_cfg=cfg)
     assert "critic" in tr.engines
-    for kw in (dict(auto_size_workers=True), dict(elastic_interval_s=1.0)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Trainer(TrainerConfig(**TINY, **kw), model_cfg=cfg).fit()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(TrainerConfig(**{**TINY, "device": "cuda"}), model_cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_launch.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(auto_size_workers=True, max_stage_workers=3),
+    dict(elastic_interval_s=0.05, max_stage_workers=3),
+    dict(auto_size_workers=True, elastic_interval_s=0.05,
+         max_stage_workers=2, kl_coef=0.05)])
+def test_trainer_fit_with_the_planner(monkeypatch, kw):
+    """``auto_size_workers`` sizes the pools from the cost model and
+    ``elastic_interval_s`` rebalances them live: every step trains, every
+    pool stays within [1, max_stage_workers], the step driver keeps one
+    worker, and the controller is built (with a rebalance cadence only)
+    and its steps resize within the cap: the live loop's, if the run
+    outlasted its first wake, and one more taken after the run, since a
+    short CPU run may end before the loop wakes."""
+    from repro_torch.core.planner import ElasticController
+    from repro_torch.core.workflow import StageRunner
+    sized, resizes, steps, ctrls = [], [], [], []
+    init, resize = StageRunner.__init__, StageRunner._resize_stage
+    step, ctrl_init = ElasticController.step, ElasticController.__init__
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        sized.append(dict(self._desired))
+
+    def spy_resize(self, name, delta):
+        ok = resize(self, name, delta)
+        resizes.append((name, delta, ok, self._desired[name]))
+        return ok
+
+    def spy_step(self):
+        steps.append(step(self))
+        return steps[-1]
+
+    def spy_ctrl_init(self, *a, **k):
+        ctrl_init(self, *a, **k)
+        ctrls.append(self)
+    monkeypatch.setattr(StageRunner, "__init__", spy_init)
+    monkeypatch.setattr(ElasticController, "__init__", spy_ctrl_init)
+    monkeypatch.setattr(StageRunner, "_resize_stage", spy_resize)
+    monkeypatch.setattr(ElasticController, "step", spy_step)
+    t = TrainerConfig(**{**TINY, "num_steps": 3, **kw})
+    res = Trainer(t, model_cfg=_cfg()).fit()
+    n = t.num_steps * t.prompts_per_step * t.group_size
+    assert res.samples_trained == n and len(res.metrics) == t.num_steps
+    assert all(math.isfinite(m["loss"]) for m in res.metrics)
+    assert sized[0]["actor_update"] == 1
+    cap = t.max_stage_workers
+    assert all(1 <= v <= cap for v in sized[0].values())
+    assert len(ctrls) == (1 if t.elastic_interval_s > 0 else 0)
+    if ctrls:
+        n_steps = len(steps)
+        ctrls[0].step()
+        assert len(steps) == n_steps + 1 and isinstance(steps[-1], list)
+    else:
+        assert not steps
+    assert all(1 <= d <= cap for _, _, _, d in resizes)
 
 
 def test_train_launcher_on_cpu(capsys):
@@ -130,7 +185,8 @@ COPIED = ["rl/reward.py", "engines/adapter.py",
           "core/obs/report.py", "core/obs/sampler.py",
           "core/workflow/__init__.py", "core/workflow/events.py",
           "core/workflow/async_engine.py", "core/recovery/__init__.py",
-          "core/recovery/snapshot.py"]
+          "core/recovery/snapshot.py", "core/planner/simulator.py",
+          "core/planner/planner.py", "core/planner/elastic.py"]
 
 
 @pytest.mark.parametrize("path", COPIED)
@@ -140,6 +196,23 @@ def test_copied_modules_differ_only_in_import_paths(path):
         return re.sub(r"\s+", " ", text)
     assert norm((SRC / "repro_torch" / path).read_text()) == \
         norm((SRC / "repro" / path).read_text())
+
+
+def test_cost_model_differs_only_in_imports_and_the_hw_figures():
+    """``core/planner/cost_model.py`` is the reference's file but for its
+    import paths, the ``HW`` class (the H100's figures in place of a
+    TPU's) and the docstring line that named the TPU."""
+    def norm(path):
+        text = path.read_text().replace("repro_torch", "repro")
+        text = re.sub(r"@dataclasses\.dataclass\(frozen=True\)\nclass HW:"
+                      r".*?\n\n\n", "<HW>", text, flags=re.S)
+        text = re.sub(r"  \* flash attention on [^\n]*\n", "<flash>", text)
+        return re.sub(r"\s+", " ", text)
+    port = norm(SRC / "repro_torch" / "core/planner/cost_model.py")
+    ref = norm(SRC / "repro" / "core/planner/cost_model.py")
+    assert port.count("<HW>") == ref.count("<HW>") == 1
+    assert port.count("<flash>") == ref.count("<flash>") == 1
+    assert port == ref
 
 
 def test_reward_decodes_ids_past_the_byte_vocab():
