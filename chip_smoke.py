@@ -15,8 +15,9 @@ which raises on failure:
    pass's registers and spills and the clusters of 1-8 blocks the card
    holds at once;
 2. each attention kernel against its plain PyTorch version at the serving
-   path's shapes (Qwen2.5-7B's heads, and StableLM-2-12B's 32/8 heads at
-   hd 160), in bf16 and fp32, with its time through the wrapper beside
+   path's shapes (Qwen2.5-7B's heads, StableLM-2-12B's 32/8 heads at hd
+   160, and the 48/8 heads at hd 128 of Grok-1 and InternVL2-26B), in
+   bf16 and fp32, with its time through the wrapper beside
    its C entry alone, the plain version's,
    ``F.scaled_dot_product_attention``'s (timed as a yardstick only; the
    port never calls it: with the band as its mask, and for flash without
@@ -41,8 +42,9 @@ which raises on failure:
 7. the training path's kernels (``grpo_logprob``, ``fused_rl_loss``
    forward and backward) against their plain versions at vocabs 152,064
    and 65,024 (4096 rows, and the trainer's micro-batch of 4 x 79 rows),
-   at 256,000 (the trainer's rows) and at the byte vocab 259 (rows off the
-   16-byte grid), bf16 and fp32, timed beside the plain versions, a
+   at 256,000 (the trainer's rows), at the byte vocab 259 (rows off the
+   16-byte grid), at 131,072 (16 x 79 rows) and at the odd 92,553 (8 x 79
+   rows), bf16 and fp32, timed beside the plain versions, a
    one-call ``torch.log_softmax``/``torch.softmax`` yardstick and the
    card's bound; the two forward kernels also through their C entries
    alone, with their device time from ``torch.profiler`` and the blocks a
@@ -139,15 +141,39 @@ which raises on failure:
     continuous engine as in phase 3: both attention kernels at hd 160;
 25. the teacher-forced rules for it, as in phase 5;
 26. a trace of a short StableLM serving run; then the weights are freed;
-27. a JSON line per kernel and, last, the device line.
+27. full-width Grok-1 (moe: 8 GELU experts of 32,768, top 2, 48/8 heads
+    at hd 128, vocab 131,072) cut to 4 layers, random weights from a
+    seed, served through the continuous engine as in phase 3; the share
+    of expert picks past capacity at decode and at prefill; the top-2
+    decode's distance from a forward over its tokens (printed: capacity
+    drops other picks in a 4-token decode call than in a forward); the
+    teacher-forced rules on the same weights with every token routed to
+    all 8 experts, where nothing drops;
+28. one GRPO micro-batch of Grok-1 cut to 1 layer (16 rows of 80
+    tokens), its reference logprobs through the flash kernel and
+    ``grpo_logprob`` at V = 131,072, through the loss kernels and through
+    the plain loss, bf16 and fp32: loss, stats and gradients agree, the
+    router, experts, head and embedding get gradients, and two bf16
+    gradient calls give the same bits;
+29. full-width InternVL2-26B (vlm: 48/8 heads at hd 128, vocab 92,553)
+    cut to 32 layers: 4 requests of 1024 seeded patch embeddings and a
+    prompt, one prefill through the flash kernel, 16 decode steps through
+    the decode kernel at the offset positions; the teacher-forced rules
+    over vision, prompt and decoded tokens;
+30. one GRPO micro-batch of InternVL2-26B cut to 2 layers with its vision
+    prefix (8 rows of 1024 + 80 positions), as phase 28 at the odd
+    vocabulary 92,553;
+31. a JSON line per kernel and, last, the device line.
 
 Phases 3, 4, 6b, 9, 10a (its profile and its trainer each), 10c, 10d, 12,
-16, 18, 23 and 24 set the launch counts of the kernels they check to 0
-just before they start and read them just after (phases 12 and 18 read
-after the teacher-forced forwards of phases 13 and 19). The kernel line's
-launches are the main paths' sums: the attention kernels over phases 3,
-6b, 10a and 10c, the loss kernels over 9, 10a and 10c (``grpo_logprob``
-over 9, 10a and 10d), the scans over 16 and 23.
+16, 18, 23, 24, 27 and 29 set the launch counts of the kernels they check
+to 0 just before they start and read them just after (phases 12 and 18
+read after the teacher-forced forwards of phases 13 and 19); phases 28 and
+30 count their reference stage's and kernel route's launches. The kernel
+line's launches are the main paths' sums: the attention kernels over
+phases 3, 6b, 10a, 10c, 27 and 29 (flash also over 28 and 30), the loss
+kernels over 9, 10a, 10c, 28 and 30 (``grpo_logprob`` over 9, 10a, 10d,
+28 and 30), the scans over 16 and 23.
 """
 from __future__ import annotations
 
@@ -203,6 +229,20 @@ PATH_NAMES = {1: "short", 2: "long"}   # the scans' entries' paths
 RING_WINDOW = 32           # local window of the ring-wrap check
 QWEN_HEADS = (28, 4, 128)       # query heads, KV heads, head dim
 STABLELM_HEADS = (32, 8, 160)
+WIDE_HEADS = (48, 8, 128)       # Grok-1 and InternVL2-26B: a group of 6
+GROK_LAYERS = 4            # Grok-1 served at full width: 59.4 GB of fp32
+                           # params at 4 layers (3.31 B a layer and 1.61 B
+                           # of embedding and head)
+GROK_TRAIN_LAYERS = 1      # its GRPO micro-batch (19.7 GB of params)
+GROK_TRAIN_ROWS = 16       # rows of seq_len 80 in that micro-batch
+GROK_VOCAB = 131_072
+VLM_LAYERS = 32            # InternVL2-26B served at full width: 54.5 GB
+                           # of fp32 params at 32 of its 48 layers
+VLM_TRAIN_LAYERS = 2       # its GRPO micro-batch
+VLM_TRAIN_ROWS = 8         # rows of 1024 vision and 80 text positions
+VLM_VOCAB = 92_553         # odd: bf16 rows start off the 16-byte grid
+VLM_REQUESTS = 4           # vision-prefixed requests, and their new tokens
+VLM_NEW = 16
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
 SMS = 132
 MAX_NEW = 32
@@ -525,11 +565,15 @@ def loss_build_report():
     return report
 
 
-def phase_kernels(torch, max_len, timed):
+def phase_kernels(torch, max_len, vlm_len, timed):
     """Kernel vs plain version at Qwen2.5-7B's attention shapes (28 heads,
     4 KV heads, hd 128), the decode rows partly filled (the timed one),
     full, and ragged with an empty row; then at StableLM-2-12B's (32 heads,
-    8 KV heads, hd 160). Returns {name: row} for the timed shapes."""
+    8 KV heads, hd 160); then at Grok-1's and InternVL2-26B's 48/8 heads
+    (hd 128): Grok's decode over ``max_len`` keys and its 4 x 2048 prefill
+    bucket, InternVL2's decode over ``vlm_len`` keys and its prefill of
+    the vision prefix and prompt. Returns {name: row} for the timed
+    shapes."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     dev = torch.device("cuda")
@@ -540,7 +584,9 @@ def phase_kernels(torch, max_len, timed):
                 (QWEN_HEADS, 4, max_len, "part"),
                 (QWEN_HEADS, 4, max_len, "full"),
                 (QWEN_HEADS, 4, 4099, "ragged"),
-                (STABLELM_HEADS, 4, max_len, "part")):
+                (STABLELM_HEADS, 4, max_len, "part"),
+                (WIDE_HEADS, 4, max_len, "part"),
+                (WIDE_HEADS, VLM_REQUESTS, vlm_len, "full")):
             lo = 0 if fill == "ragged" else 1   # ragged: a row with no key
             lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
             lens[0] = lo
@@ -555,7 +601,9 @@ def phase_kernels(torch, max_len, timed):
                 (QWEN_HEADS, 4, 1000, 0), (QWEN_HEADS, 4, 1000, 256),
                 (QWEN_HEADS, 4, 2048, 0), (QWEN_HEADS, 4, 2048, 256),
                 (QWEN_HEADS, 1, SEQ_LEN_MAX, 0), (STABLELM_HEADS, 4, 8, 0),
-                (STABLELM_HEADS, 1, SEQ_LEN_MAX, 0)):
+                (STABLELM_HEADS, 1, SEQ_LEN_MAX, 0),
+                (WIDE_HEADS, 4, 2048, 0),
+                (WIDE_HEADS, VLM_REQUESTS, vlm_len - VLM_NEW, 0)):
             row = _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window)
             rows.append(row)
             if (dtype, B, S, H, window) == timed["flash_attention"]:
@@ -585,16 +633,21 @@ def make_prompts(seed):
     return prompts
 
 
-def _forward_logprobs(torch, params, cfg, seqs):
+def _forward_logprobs(torch, params, cfg, seqs, vision=None):
     """For each (tokens, recorded logprobs, prompt length) in ``seqs``: the
-    logprobs of its response tokens under one full forward."""
+    logprobs of its response tokens under one full forward; with
+    ``vision`` (one (T, d) prefix a sequence) behind its vision prefix."""
     from repro_torch.models import forward
     dev = params["embed"]["table"].device
     out = []
-    for tokens, _, plen in seqs:
+    for i, (tokens, _, plen) in enumerate(seqs):
         toks = torch.tensor(tokens, device=dev)[None]
+        batch = {"tokens": toks}
+        if vision is not None:
+            batch["vision_embeds"] = vision[i][None]
         with torch.no_grad():
-            logits, _ = forward(params, cfg, {"tokens": toks})
+            logits, _ = forward(params, cfg, batch)
+        logits = logits[:, -toks.shape[1]:]
         logp = torch.log_softmax(logits[0].float() / TEMPERATURE, dim=-1)
         t = torch.arange(plen, len(tokens), device=dev)
         out.append(logp[t - 1, toks[0, t]])
@@ -619,14 +672,17 @@ def _rows_seqs(rows):
     return [(r["tokens"], r["logprobs"], r["prompt_len"]) for r in rows]
 
 
-def _teacher_forced(torch, params, cfg, seqs16, run32):
+def _teacher_forced(torch, params, cfg, seqs16, run32, vision=None,
+                    extra=None):
     """The teacher-forced rules: an fp32 decode within FP32_TF_TOL of an
     fp32 forward over its tokens; a bf16 decode no further from an fp32
     forward than BF16_TF_FACTOR times the bf16 forward is. ``run32(cfg32)``
-    decodes in fp32 and returns its sequences."""
+    decodes in fp32 and returns its sequences; ``vision`` holds the
+    sequences' vision prefixes, in their order (both runs' sequences come
+    from the first prompts); ``extra`` joins the printed line."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    fwd16 = _forward_logprobs(torch, params, cfg, seqs16)
-    fwd32 = _forward_logprobs(torch, params, cfg32, seqs16)
+    fwd16 = _forward_logprobs(torch, params, cfg, seqs16, vision)
+    fwd32 = _forward_logprobs(torch, params, cfg32, seqs16, vision)
     rec16 = _recorded(torch, seqs16)
     tf = {"bf16_decode_vs_bf16_forward": _max_diff(rec16, fwd16),
           "bf16_decode_vs_fp32_forward": _max_diff(rec16, fwd32),
@@ -634,9 +690,10 @@ def _teacher_forced(torch, params, cfg, seqs16, run32):
     seqs32 = run32(cfg32)
     tf["fp32_decode_vs_fp32_forward"] = _max_diff(
         _recorded(torch, seqs32),
-        _forward_logprobs(torch, params, cfg32, seqs32))
+        _forward_logprobs(torch, params, cfg32, seqs32, vision))
     bf16_tol = BF16_TF_FACTOR * tf["bf16_forward_vs_fp32_forward"]
     print(json.dumps({"phase": "teacher_forced", "model": cfg.name,
+                      **(extra or {}),
                       "max_abs_logprob_diff": tf,
                       "tolerance": {"fp32_decode_vs_fp32_forward":
                                     FP32_TF_TOL,
@@ -811,8 +868,9 @@ def _check_dx(dtype, shape, x, t, stats, dx):
 
 def phase_loss_kernels(torch, timed):
     """The three vocab-streaming kernels against their plain versions, at
-    the Qwen2.5, Falcon-Mamba and RecurrentGemma vocabs; returns {name:
-    row} at the ``timed`` (dtype, N, V)."""
+    the Qwen2.5, Falcon-Mamba and RecurrentGemma vocabs, and at Grok-1's
+    (131,072) and InternVL2-26B's (92,553, odd) at their micro-batches'
+    rows; returns {name: row} at the ``timed`` (dtype, N, V)."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
@@ -832,7 +890,8 @@ def phase_loss_kernels(torch, timed):
         dt = getattr(torch, dtype)
         for N, VV in ((4096, V), (TRAIN_ROWS, V), (4096, SSM_VOCAB),
                       (TRAIN_ROWS, SSM_VOCAB), (TRAIN_ROWS, HYB_VOCAB),
-                      (7, 259)):
+                      (7, 259), (GROK_TRAIN_ROWS * 79, GROK_VOCAB),
+                      (VLM_TRAIN_ROWS * 79, VLM_VOCAB)):
             x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
                                                            dt)
             e = x.element_size()
@@ -960,7 +1019,8 @@ def _watched_grads(cfg, g):
     """The gradients a route without a backward would lose: the attention
     weights (flash), every mamba parameter (the selective scan), or every
     RG-LRU parameter (its scan) and every attention weight of the hybrid's
-    first tile and remainder."""
+    first tile and remainder; for the moe family the router, the experts'
+    ``up``, the head and the embedding."""
     if cfg.arch_type == "ssm":
         return _flat("mamba", g["blocks"]["mamba"])
     if cfg.arch_type == "hybrid":
@@ -973,36 +1033,108 @@ def _watched_grads(cfg, g):
             mix = "rec" if "rec" in blk else "attn"
             out.update(_flat(f"rem{i}/{mix}", blk[mix]))
         return out
+    if cfg.arch_type == "moe":
+        ffn = g["blocks"]["ffn"]
+        return {"router": ffn["router"]["w"],
+                "experts/up": ffn["experts"]["up"],
+                "lm_head": g["lm_head"]["w"], "embed": g["embed"]["table"]}
     return {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
 
 
-def phase_microbatch(torch, cfg2):
-    """One GRPO micro-batch (4 x 80 tokens) at full width, cut depth: the
-    kernels' loss against the plain loss on the same params and batch."""
+def _vision(torch, cfg, n):
+    """``n`` rows of seeded stub patch embeddings, (n, T, d) fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    return torch.randn((n, cfg.vision_tokens, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def _microbatch(torch, cfg2, params, n_rows, vision, ref_stage):
+    """``n_rows`` synthetic rows of 80 tokens, packed; with ``vision`` the
+    batch carries stub patch embeddings. With ``ref_stage`` the reference
+    logprobs come from the reference stage's own path (one forward through
+    the flash kernel, ``token_logprobs`` through ``grpo_logprob``) and the
+    behaviour's sit near them, so the ratios and the KL are of order
+    one."""
     from repro_torch.engines import pack_rows
+    from repro_torch.models import forward
+    from repro_torch.rl.loss import token_logprobs
+    batch = pack_rows(_train_rows(cfg2, n_rows, SEED), 80)
+    if vision:
+        batch["vision_embeds"] = _vision(torch, cfg2, n_rows)
+    if ref_stage:
+        toks = batch["tokens"]
+        inputs = {k: v for k, v in batch.items()
+                  if k in ("tokens", "vision_embeds")}
+        with torch.no_grad():
+            logits, _ = forward(params, cfg2, inputs)
+            lp, _ = token_logprobs(logits[:, -toks.shape[1]:-1], toks[:, 1:])
+        del logits
+        ref = torch.zeros_like(batch["ref_logprob"])
+        ref[:, 1:] = lp
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch["ref_logprob"] = ref
+        batch["old_logprob"] = ref + 0.1 * torch.randn(
+            ref.shape, generator=gen, device="cuda")
+    return batch
+
+
+def phase_microbatch(torch, cfg2, n_rows=4, vision=False, ref_stage=False,
+                     smi=None):
+    """One GRPO micro-batch (``n_rows`` x 80 tokens) at full width, cut
+    depth: the kernels' loss against the plain loss on the same params and
+    batch, in bf16 and fp32 compute. With ``vision`` the rows carry stub
+    patch embeddings; with ``ref_stage`` their reference logprobs come
+    through the flash and ``grpo_logprob`` kernels, the kernel route's
+    gradients are taken twice in bf16 and must be the same bits, and each
+    gradient tree waits in host memory while the next is taken (a moe
+    model's trees are too large to hold two on the card). Returns the
+    launches of the main path: the reference stage's and the kernel
+    route's."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_fwd)
     from repro_torch.models import init_params
     from repro_torch.rl import loss as loss_mod
     from repro_torch.rl.grpo import GRPOConfig, grpo_grad_step
     from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(SEED, cfg2)
-    batch = pack_rows(_train_rows(cfg2, 4, SEED), 80)
+    counters = _counters("flash_attention", "grpo_logprob")
+    before = {n: c.launches for n, c in counters.items()}
+    batch = _microbatch(torch, cfg2, params, n_rows, vision, ref_stage)
+    launches = {n: c.launches - before[n] for n, c in counters.items()}
+    launches.update(fused_rl_loss_fwd=0, fused_rl_loss_bwd=0)
     rl = GRPOConfig(kl_coef=0.05)
     tol = {"bfloat16": 2e-2, "float32": 1e-4}
     report = {"phase": "microbatch", "model": cfg2.name,
-              "layers": cfg2.num_layers}
-    for compute, gtol in tol.items():
-        c = dataclasses.replace(cfg2, compute_dtype=compute)
+              "layers": cfg2.num_layers, "rows": n_rows,
+              "vision_tokens": cfg2.vision_tokens if vision else 0}
+    if smi is not None:
+        report["card"] = smi
+
+    def kernel_grads(c):
         n = fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        g_k, m_k = grpo_grad_step(params, c, rl, batch)
+        g, m = grpo_grad_step(params, c, rl, batch)
         torch.cuda.synchronize()
-        t_k = time.monotonic() - t0
+        dt = time.monotonic() - t0
         if (fused_rl_loss_fwd.launches, fused_rl_loss_bwd.launches) != \
                 (n[0] + 1, n[1] + 1):
             raise AssertionError("the micro-batch missed the loss kernels")
+        launches["fused_rl_loss_fwd"] += 1
+        launches["fused_rl_loss_bwd"] += 1
+        return g, m, dt
+
+    def leaves(g):
+        out = tree_leaves(g)
+        return [t.cpu() for t in out] if ref_stage else out
+
+    for compute, gtol in tol.items():
+        c = dataclasses.replace(cfg2, compute_dtype=compute)
+        g_k, m_k, t_k = kernel_grads(c)
+        watched = {k: float(t.abs().max())
+                   for k, t in _watched_grads(cfg2, g_k).items()}
+        g_k = leaves(g_k)
         inner = loss_mod.fused_rl_loss
         loss_mod.fused_rl_loss = _plain_fused_rl_loss
         try:
@@ -1017,23 +1149,36 @@ def phase_microbatch(torch, cfg2):
             if not (math.isfinite(a) and abs(a - b) <= 1e-4 * (1 + abs(b))):
                 raise AssertionError(f"micro-batch {compute} {k}: kernel "
                                      f"{a} vs plain {b}")
-        rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
-                  for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+        rel = max(float((a.to(b.device) - b).norm()
+                        / b.norm().clamp_min(1e-30))
+                  for a, b in zip(g_k, tree_leaves(g_p)))
+        del g_p
         if not rel <= gtol:
             raise AssertionError(f"micro-batch {compute}: gradients differ "
                                  f"by {rel} relative (limit {gtol})")
-        watched = {k: float(t.abs().max())
-                   for k, t in _watched_grads(cfg2, g_k).items()}
         if not min(watched.values()) > 0.0:
             raise AssertionError(f"parameters got no gradient: {watched}")
         report[compute] = {"stats_kernel_plain": stats,
                            "max_grad_rel_frobenius": rel, "limit": gtol,
                            "grad_abs_max": watched, "grad_step_s": t_k,
                            "plain_grad_step_s": t_p}
-        del g_k, g_p
+        if ref_stage and compute == "bfloat16":
+            g2, m2, _ = kernel_grads(c)
+            same = all(torch.equal(a.to(b.device), b)
+                       for a, b in zip(g_k, tree_leaves(g2))) and \
+                all(torch.equal(m_k[k], m2[k]) for k in m_k)
+            del g2
+            if not same:
+                raise AssertionError("micro-batch: two gradient calls "
+                                     "gave different bits")
+            report[compute]["bit_identical_over_two_calls"] = same
+        del g_k
+    report["launches"] = launches
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(report))
-    del params
-    torch.cuda.empty_cache()
+    del params, batch
+    _release(torch)
+    return launches
 
 
 def _counters(*names):
@@ -2104,6 +2249,208 @@ def phase_ring_check(torch, cfg):
     torch.cuda.empty_cache()
 
 
+def _moe_drops(torch, fn):
+    """Run ``fn()`` with each ``moe_ffn`` call's router statistics
+    (``moe_router_stats`` on the call's own input) recorded: the share of
+    picks past capacity in the decode calls (one token a slot) and in the
+    prefill calls, and the last decode call's per-expert picks."""
+    from repro_torch.models import moe
+    inner = moe.moe_ffn
+    seen = {"decode": [], "prefill": []}
+
+    def spy(p, x, cfg, **kw):
+        st = moe.moe_router_stats(p, x, cfg)
+        seen["decode" if x.shape[1] == 1 else "prefill"].append(st)
+        return inner(p, x, cfg, **kw)
+    moe.moe_ffn = spy
+    try:
+        fn()
+    finally:
+        moe.moe_ffn = inner
+    out = {}
+    for kind, stats in seen.items():
+        fr = [float(st.dropped_fraction) for st in stats]
+        out[kind] = {"calls": len(fr),
+                     "dropped_fraction_mean": sum(fr) / max(len(fr), 1),
+                     "dropped_fraction_max": max(fr, default=0.0)}
+    if seen["decode"]:
+        out["decode"]["last_call_picks_per_expert"] = \
+            seen["decode"][-1].tokens_per_expert.tolist()
+    return out
+
+
+def phase_grok_serving(torch, smi):
+    """Full-width Grok-1 (GROK_LAYERS layers, 8 GELU experts of 32,768,
+    top 2, random weights from a seed) served through the continuous
+    engine as Qwen2.5 is in phase 3. Then the routing of a short run (the
+    dropped share of the picks at decode, where C = 1 with 4 slots, and at
+    prefill); the top-2 decode's distance from a forward over its own
+    tokens, printed only (a decode call routes 4 tokens and a forward a
+    whole sequence, so capacity drops other picks); and the teacher-forced
+    rules as in phase 5 on the same weights routed to all 8 experts,
+    where no pick can drop. Returns the serving run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    from repro_torch.models import count_params, init_params
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("grok_1_314b"),
+                              num_layers=GROK_LAYERS)
+    prompts = make_prompts(SEED)
+    max_len = max(len(p) for p in prompts) + MAX_NEW
+
+    def engine(c, slots, new, dtype=None, reg=None):
+        return ContinuousBatchingEngine(
+            c, num_slots=slots, max_len=max_len, max_new_tokens=new,
+            temperature=TEMPERATURE, seed=SEED, dtype=dtype,
+            metrics=reg or MetricsRegistry())
+    reg = MetricsRegistry()
+    eng = engine(cfg, NUM_SLOTS, MAX_NEW, reg=reg)
+    t0 = time.monotonic()
+    params = init_params(SEED, cfg)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} experts "
+          f"{cfg.num_experts} top {cfg.top_k} d_ff {cfg.moe_d_ff} "
+          f"vocab={cfg.vocab_size} params={count_params(params)} "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) "
+          f"init {time.monotonic() - t0:.3f}s")
+    done, launches = serve_continuous(torch, cfg, eng, params, prompts, reg,
+                                      smi)
+    short = engine(cfg, NUM_SLOTS, 9)
+    drops = _moe_drops(torch, lambda: short.generate(
+        params, [short.make_sequence(p) for p in prompts[8:12]]))
+    by_uid = sorted(done, key=lambda q: q.uid)
+    seqs = _cb_seqs([by_uid[0], by_uid[-1]])
+    top2 = _max_diff(_recorded(torch, seqs),
+                     _forward_logprobs(torch, params, cfg, seqs))
+    every = dataclasses.replace(cfg, top_k=cfg.num_experts)
+
+    def run(c, dtype=None):
+        e = engine(c, 2, 16, dtype)
+        fin, _ = e.generate(params, [e.make_sequence(prompts[0]),
+                                     e.make_sequence(prompts[9])])
+        return _cb_seqs(fin)
+    _teacher_forced(torch, params, every, run(every),
+                    lambda c32: run(c32, torch.float32),
+                    extra={"top_k": every.top_k})
+    if not (drops["decode"]["calls"] and drops["prefill"]["calls"]):
+        raise AssertionError(f"the moe layers never ran: {drops}")
+    print(json.dumps({
+        "phase": "moe_serving", "model": cfg.name, "layers": cfg.num_layers,
+        "card": smi, "routing": drops,
+        "top2_decode_vs_bf16_forward_max_abs_logprob_diff": top2,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    del params, eng, done, short
+    _release(torch)
+    return launches
+
+
+def _vlm_decode(torch, params, cfg, prompts, vis, new, cache_dtype):
+    """The vlm's serving path: one prefill over each request's vision
+    prefix and prompt (right-padded; flash kernel), then ``new`` decode
+    steps (decode kernel) at positions T + len(prompt) + t over a cache of
+    T + the longest prompt + ``new`` rows, sampled as the engines sample.
+    Returns [(text tokens, their logprobs, prompt length)]."""
+    import numpy as np
+
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.rl.sampling import categorical, fold_seed
+    B, T = len(prompts), cfg.vision_tokens
+    lens = [len(p) for p in prompts]
+    P = max(lens)
+    toks = torch.zeros((B, P), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(np.asarray(p), device="cuda")
+    rows = torch.arange(B, device="cuda")
+    out = [list(map(int, p)) for p in prompts]
+    lps = [[0.0] * n for n in lens]
+    with torch.no_grad():
+        logits, _, pre = forward(params, cfg, {"tokens": toks,
+                                               "vision_embeds": vis},
+                                 return_cache=True)
+        last = logits[rows, torch.as_tensor(lens, device="cuda") + T - 1]
+        del logits
+        cache = init_cache(cfg, B, T + P + new, cache_dtype)
+        for kv in ("k", "v"):
+            cache[kv][:, :, :T + P] = pre["kv"][kv]
+        del pre
+        for t in range(new):
+            lt = last.float() / TEMPERATURE
+            nxt = categorical(lt, [fold_seed(SEED, i, lens[i] + t)
+                                   for i in range(B)])
+            lp = torch.log_softmax(lt, dim=-1).gather(1, nxt[:, None])[:, 0]
+            for i, (a, b) in enumerate(zip(nxt.tolist(), lp.tolist())):
+                out[i].append(a)
+                lps[i].append(b)
+            if t + 1 < new:
+                pos = torch.as_tensor([T + n + t for n in lens],
+                                      device="cuda")
+                last, cache = decode_step(params, cfg, cache, nxt, pos)
+    return [(np.asarray(o), np.asarray(lp, np.float32), n)
+            for o, lp, n in zip(out, lps, lens)]
+
+
+def phase_vlm_serving(torch, smi):
+    """Full-width InternVL2-26B (VLM_LAYERS layers, random weights from a
+    seed): VLM_REQUESTS requests, each 1024 seeded patch embeddings and
+    one of the first prompts, prefilled together through the flash kernel
+    (GQA group 6, hd 128) and decoded VLM_NEW steps through the decode
+    kernel at the offset positions; then the teacher-forced rules, whose
+    forwards run over vision, prompt and the decoded tokens. Returns the
+    serving run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import count_params, init_params
+    _release(torch)
+    cfg = dataclasses.replace(get_config("internvl2_26b"),
+                              num_layers=VLM_LAYERS)
+    prompts = make_prompts(SEED)[:VLM_REQUESTS]
+    t0 = time.monotonic()
+    params = init_params(SEED, cfg)
+    vis = _vision(torch, cfg, VLM_REQUESTS)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"vision tokens {cfg.vision_tokens} vocab={cfg.vocab_size} "
+          f"params={count_params(params)} ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}) init {time.monotonic() - t0:.3f}s")
+    decode_attention.launches = flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    seqs = _vlm_decode(torch, params, cfg, prompts, vis, VLM_NEW,
+                       torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    for toks, lps, plen in seqs:
+        if max(toks) >= cfg.vocab_size or min(toks) < 0 or not all(
+                math.isfinite(x) and x <= 0.0 for x in lps[plen:]):
+            raise AssertionError(f"{cfg.name}: bad tokens or logprobs")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never ran on the main path: "
+                             f"{launches}")
+    n_new = VLM_REQUESTS * VLM_NEW
+    print(json.dumps({
+        "phase": "vlm_serving", "model": cfg.name, "layers": cfg.num_layers,
+        "requests": VLM_REQUESTS, "vision_tokens": cfg.vision_tokens,
+        "prompt_tokens": [len(p) for p in prompts], "new_tokens": n_new,
+        "wall_s": wall, "tokens_per_s": n_new / wall, "card": smi,
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    _teacher_forced(
+        torch, params, cfg, seqs,
+        lambda c32: _vlm_decode(torch, params, c32, prompts[:2], vis[:2],
+                                VLM_NEW, torch.float32), vision=vis)
+    del params, vis
+    _release(torch)
+    return launches
+
+
 def main():
     torch = _import_port()
 
@@ -2149,7 +2496,9 @@ def main():
                                   QWEN_HEADS[0], "part"),
              "flash_attention": ("bfloat16", 1, SEQ_LEN_MAX, QWEN_HEADS[0],
                                  0)}
-    krows = phase_kernels(torch, max_len, timed)
+    vlm_len = get_config("internvl2_26b").vision_tokens + max(
+        len(p) for p in prompts[:VLM_REQUESTS]) + VLM_NEW
+    krows = phase_kernels(torch, max_len, vlm_len, timed)
     torch.cuda.empty_cache()
 
     # -- 3. continuous engine, full-width Qwen2.5-7B -----------------------
@@ -2299,7 +2648,29 @@ def main():
     # -- 24-26. StableLM-2-12B (hd 160) served at full width ------------------
     phase_stablelm_serving(torch, smi)
 
-    # -- 27. output -----------------------------------------------------------
+    # -- 27. Grok-1 (moe) served at full width --------------------------------
+    for name, n in phase_grok_serving(torch, smi).items():
+        launches[name] += n
+
+    # -- 28. one GRPO micro-batch of Grok-1 -----------------------------------
+    grok1 = dataclasses.replace(get_config("grok_1_314b"),
+                                num_layers=GROK_TRAIN_LAYERS)
+    for name, n in phase_microbatch(torch, grok1, GROK_TRAIN_ROWS,
+                                    ref_stage=True, smi=smi).items():
+        launches[name] += n
+
+    # -- 29. InternVL2-26B (vlm) served at full width -------------------------
+    for name, n in phase_vlm_serving(torch, smi).items():
+        launches[name] += n
+
+    # -- 30. one GRPO micro-batch of InternVL2-26B with its vision prefix -----
+    vlm2 = dataclasses.replace(get_config("internvl2_26b"),
+                               num_layers=VLM_TRAIN_LAYERS)
+    for name, n in phase_microbatch(torch, vlm2, VLM_TRAIN_ROWS, vision=True,
+                                    ref_stage=True, smi=smi).items():
+        launches[name] += n
+
+    # -- 31. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",

@@ -44,7 +44,7 @@ from repro_torch.engines.continuous_batching.scheduler import (Sequence,
 from repro_torch.models import decode_step, forward
 from repro_torch.rl.sampling import _next_pow2, categorical, fold_seed
 
-SUPPORTED_ARCHS = ("dense",)
+SUPPORTED_ARCHS = ("dense", "moe")
 
 
 def _sample(logits, seed, uids, positions, temperature):
@@ -67,7 +67,12 @@ def _prefill_step(params, cfg, toks, lens, uids, seed, *, temperature):
     rows = torch.arange(len(lens), device=toks.device)
     last = logits[rows, torch.as_tensor(lens, device=toks.device) - 1]
     nxt, lp = _sample(last, seed, uids, lens, temperature)
-    return cache["kv"]["k"], cache["kv"]["v"], nxt, lp
+    if "dense_kv" in cache:            # moe: first_dense_layers prepended
+        k = torch.cat([cache["dense_kv"]["k"], cache["kv"]["k"]])
+        v = torch.cat([cache["dense_kv"]["v"], cache["kv"]["v"]])
+    else:
+        k, v = cache["kv"]["k"], cache["kv"]["v"]
+    return k, v, nxt, lp
 
 
 @torch.no_grad()
@@ -106,7 +111,7 @@ class ContinuousBatchingEngine:
 
     Parameters
     ----------
-    cfg: model config (dense GQA archs).
+    cfg: model config (dense and moe GQA archs).
     num_slots: decode-slot pool size (the decode batch dimension).
     page_size: tokens per KV page.
     max_len: max total sequence length (prompt + generation); rounded up

@@ -4,8 +4,11 @@
     logits, aux = forward(params, cfg, batch)              # train/prefill
     logits, cache = decode_step(params, cfg, cache, token, pos)
 
-``batch`` is a dict holding tokens (B,S). The dense, ssm and hybrid
-families are ported; the others raise ``NotImplementedError``.
+``batch`` is a dict holding tokens (B,S), plus ``vision_embeds`` (B,T,d)
+for the vlm family: projected patch embeddings prepended to the tokens
+(the vision encoder is a stub, as in the reference). The dense, moe, vlm,
+ssm and hybrid families are ported; MLA attention and the audio family
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ def init_params(seed: int, cfg, *, device=None):
     if cfg.arch_type == "audio":
         raise NotImplementedError(
             f"{cfg.name}: the audio family is not ported yet (ROADMAP §1, "
-            "item 'the other model families')")
+            "item 12, 'the other model families')")
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return transformer.init_lm(gen, cfg)
@@ -37,9 +40,10 @@ def forward(params, cfg, batch, *, window=0, use_kernels=True,
     forward-only kernels, ``kernels/flash_attention`` for causal attention,
     ``kernels/mamba_scan`` for the ssm scan and ``kernels/rglru_scan`` for
     the RG-LRU; False (the actor update) takes the plain, differentiable
-    ``sdpa`` and scans."""
+    ``sdpa`` and scans. A vlm's logits cover its T vision positions too."""
+    extra = batch.get("vision_embeds") if cfg.arch_type == "vlm" else None
     logits, aux, cache = transformer.forward_lm(
-        params, cfg, batch["tokens"], window=window,
+        params, cfg, batch["tokens"], extra_embeds=extra, window=window,
         return_cache=return_cache, use_kernels=use_kernels)
     if return_cache:
         return logits, aux, cache

@@ -1,19 +1,25 @@
-"""Decoder-only LM assembly — the dense, ssm and hybrid families.
+"""Decoder-only LM assembly — the dense, moe, vlm, ssm and hybrid families.
 
 Layer stacks keep the reference's layout: one tree of tensors with a
 leading layer axis (``params["blocks"]["attn"]["wq"]["w"]`` is
 ``(L, d, H*hd)``; an ssm block is ``{"ln", "mamba": {...}}``), walked here
-by a Python loop where the reference used ``jax.lax.scan``. The hybrid
-(Griffin) family stacks whole (recurrent, recurrent, attention) tiles:
-``params["tiles"]["{i}_{kind}"]`` has a leading tile axis, and the layers
-left over after the last whole tile are a list, ``params["rem"]``. Its
-attention blocks are local (``cfg.local_window``) and decode over a ring
-cache.
-``forward_lm`` returns ``(logits, aux, cache_or_None)`` with aux 0 (no MoE
-yet); ``forward_hidden`` returns the trunk's final-norm hidden states that
+by a Python loop where the reference used ``jax.lax.scan``. A moe model's
+``blocks`` hold ``models/moe.py``'s experts as their ``ffn``, after
+``cfg.first_dense_layers`` plain blocks stacked apart as
+``dense_blocks``; its KV cache stacks all ``num_layers`` layers. The vlm
+family is the dense trunk behind ``extra_embeds`` (stubbed vision patch
+embeddings) prepended to the embedded tokens, which then start at
+position T. The hybrid (Griffin) family stacks whole (recurrent,
+recurrent, attention) tiles: ``params["tiles"]["{i}_{kind}"]`` has a
+leading tile axis, and the layers left over after the last whole tile are
+a list, ``params["rem"]``. Its attention blocks are local
+(``cfg.local_window``) and decode over a ring cache.
+``forward_lm`` returns ``(logits, aux, cache_or_None)``: aux is the moe
+load-balance loss summed over layers (0.0 for the other families);
+``forward_hidden`` returns the trunk's final-norm hidden states that
 ``forward_lm`` unembeds (the PPO value head reads them).
 
-The moe and vlm families, and MLA attention, are not ported yet and raise
+MLA attention and the audio family are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
@@ -32,12 +39,13 @@ from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
 
 def _require_ported(cfg):
     if not (cfg.arch_type in ("ssm", "hybrid")
-            or (cfg.arch_type == "dense" and cfg.attention == "gqa")):
+            or (cfg.arch_type in ("dense", "moe", "vlm")
+                and cfg.attention == "gqa")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP §1, item 12, "
-            "'the other model families'); the port runs dense GQA, ssm and "
-            "hybrid models")
+            "'the other model families'); the port runs dense, moe and vlm "
+            "models with GQA attention, ssm and hybrid models")
 
 
 def _layer(tree, i):
@@ -52,25 +60,29 @@ def _layer(tree, i):
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen, cfg, kind, layers):
+def _init_block(gen, cfg, kind, layers, ffn_kind="dense"):
     """An attention block ({"ln1", "attn", "ln2", "ffn"}) or a recurrent
-    one ({"ln1", "rec", "ln2", "ffn"}), stacked over ``layers``."""
+    one ({"ln1", "rec", "ln2", "ffn"}), stacked over ``layers``; the ffn
+    is an MLP, or experts for ``ffn_kind="moe"``."""
     dt, dev = dtype_of(cfg.param_dtype), gen.device
     mix = (rglru_mod.init_rglru_block(gen, cfg, dt, layers=layers)
            if kind == "recurrent"
            else attn.init_attention(gen, cfg, dt, layers=layers))
+    ffn = (moe_mod.init_moe(gen, cfg, dt, layers=layers)
+           if ffn_kind == "moe"
+           else init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
+                         layers=layers))
     return {"ln1": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=layers),
             "rec" if kind == "recurrent" else "attn": mix,
             "ln2": init_norm(cfg.norm, cfg.d_model, dt, dev, layers=layers),
-            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
-                            layers=layers)}
+            "ffn": ffn}
 
 
 def init_lm(gen, cfg):
-    """Parameters of a dense, ssm or hybrid decoder, drawn on ``gen``'s
-    device at the reference's init scales (normal 0.02, zero biases, unit
-    norm scales; the mamba and RG-LRU blocks' own, ``models/ssm.py`` and
-    ``models/rglru.py``)."""
+    """Parameters of a dense, moe, vlm, ssm or hybrid decoder, drawn on
+    ``gen``'s device at the reference's init scales (normal 0.02, zero
+    biases, unit norm scales; the mamba and RG-LRU blocks' own,
+    ``models/ssm.py`` and ``models/rglru.py``)."""
     _require_ported(cfg)
     dt, dev = dtype_of(cfg.param_dtype), gen.device
     L = (cfg.num_layers,)
@@ -94,9 +106,28 @@ def init_lm(gen, cfg):
         rem = [layer.kind for layer in layout if layer.tile is None]
         if rem:
             params["rem"] = [_init_block(gen, cfg, kind, ()) for kind in rem]
+    elif cfg.arch_type == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            params["dense_blocks"] = _init_block(gen, cfg, "attention", (nd,))
+        params["blocks"] = _init_block(gen, cfg, "attention",
+                                       (cfg.num_layers - nd,), "moe")
     else:
         params["blocks"] = _init_block(gen, cfg, "attention", L)
     return params
+
+
+def _attn_stacks(params, cfg):
+    """(ffn kind, stacked blocks, their depth, cache key) of a dense, moe
+    or vlm trunk in layer order: a moe model's ``first_dense_layers`` come
+    first."""
+    if cfg.arch_type != "moe":
+        return [("dense", params["blocks"], cfg.num_layers, "kv")]
+    nd = cfg.first_dense_layers
+    stacks = [("moe", params["blocks"], cfg.num_layers - nd, "kv")]
+    if nd:
+        stacks.insert(0, ("dense", params["dense_blocks"], nd, "dense_kv"))
+    return stacks
 
 
 class HybridLayer(NamedTuple):
@@ -138,13 +169,21 @@ def _hybrid_layers(params, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_full(p, x, cfg, *, window, positions, use_kernels):
+def _ffn(p, h, cfg, ffn_kind):
+    """The block's feed-forward: (y, the moe load-balance loss or 0.0)."""
+    if ffn_kind == "moe":
+        return moe_mod.moe_ffn(p, h, cfg)
+    return mlp(p, h, cfg.activation, h.dtype), 0.0
+
+
+def _attn_block_full(p, x, cfg, *, window, positions, use_kernels,
+                     ffn_kind="dense"):
     h = norm(p["ln1"], x)
     y, k, v = attn.attend_full_kv(p["attn"], h, cfg, positions,
                                   window=window, use_kernels=use_kernels)
     x = x + y
-    h = norm(p["ln2"], x)
-    return x + mlp(p["ffn"], h, cfg.activation, x.dtype), k, v
+    y, aux = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
+    return x + y, aux, k, v
 
 
 def _rec_block_full(p, x, cfg, *, use_kernels):
@@ -153,67 +192,75 @@ def _rec_block_full(p, x, cfg, *, use_kernels):
     return x + mlp(p["ffn"], norm(p["ln2"], x), cfg.activation, x.dtype)
 
 
-def forward_lm(params, cfg, tokens, *, window=0, return_cache=False,
-               positions=None, use_kernels=True):
-    """tokens: (B, S) int. Returns (logits (B, S, V), aux, cache_or_None);
-    the cache is {"kv": {"k", "v"}} of (L, B, S, KVH, hd). use_kernels=False
-    takes the plain, differentiable attention and scan routes (training).
-    The ssm family builds no prefill cache, as in the reference: its decode
-    state comes from stepping through the prompt. The hybrid's attention
-    runs at ``cfg.local_window`` whatever ``window`` is, and its cache is
-    the reference's {"att_kv": {"k", "v"}} of the tiles' attention layers
+def forward_lm(params, cfg, tokens, *, extra_embeds=None, window=0,
+               return_cache=False, positions=None, use_kernels=True):
+    """tokens: (B, S) int; extra_embeds: (B, T, d) prepended (the vlm's
+    vision stub). Returns (logits (B, T + S, V), aux, cache_or_None); the
+    cache is {"kv": {"k", "v"}} of (L, B, T + S, KVH, hd), and a moe model
+    with ``first_dense_layers`` keeps those layers' apart as
+    {"dense_kv": ...}, as the reference does. use_kernels=False takes the
+    plain, differentiable attention and scan routes (training). The ssm
+    family builds no prefill cache, as in the reference: its decode state
+    comes from stepping through the prompt. The hybrid's attention runs at
+    ``cfg.local_window`` whatever ``window`` is, and its cache is the
+    reference's {"att_kv": {"k", "v"}} of the tiles' attention layers
     (None without a whole tile)."""
     if return_cache and cfg.arch_type == "ssm":
         raise ValueError(f"{cfg.name}: the ssm family has no prefill cache; "
                          "feed the prompt through decode_step")
-    x, kv = _forward_trunk(params, cfg, tokens, window=window,
-                           positions=positions, use_kernels=use_kernels,
-                           return_kv=return_cache)
+    x, aux, cache = _forward_trunk(
+        params, cfg, tokens, extra_embeds=extra_embeds, window=window,
+        positions=positions, use_kernels=use_kernels, return_kv=return_cache)
     cd = dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
         logits = unembed(params["embed"], x, cd)
     else:
         logits = dense(params["lm_head"], x, cd)
-    cache = None
-    if return_cache:
-        cache = {"att_kv" if cfg.arch_type == "hybrid" else "kv": kv}
-    return logits, 0.0, cache
+    return logits, aux, cache
 
 
-def forward_hidden(params, cfg, tokens, *, use_kernels=True, positions=None,
-                   window=0):
-    """Final-norm hidden states (B, S, d), the trunk of ``forward_lm``
+def forward_hidden(params, cfg, tokens, *, extra_embeds=None,
+                   use_kernels=True, positions=None, window=0):
+    """Final-norm hidden states (B, T + S, d), the trunk of ``forward_lm``
     without the unembed: what the PPO value head reads. ``use_kernels``
     picks the route as in ``forward_lm``."""
-    x, _ = _forward_trunk(params, cfg, tokens, window=window,
-                          positions=positions, use_kernels=use_kernels,
-                          return_kv=False)
-    return x
+    return _forward_trunk(params, cfg, tokens, extra_embeds=extra_embeds,
+                          window=window, positions=positions,
+                          use_kernels=use_kernels, return_kv=False)[0]
 
 
-def _forward_trunk(params, cfg, tokens, *, window, positions, use_kernels,
-                   return_kv):
+def _stacked(ks, vs):
+    return {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+
+
+def _forward_trunk(params, cfg, tokens, *, extra_embeds=None, window,
+                   positions, use_kernels, return_kv):
     """The forward up to and including ``final_norm``: (hidden (B, S, d),
-    the stacked {"k", "v"} of the cached attention layers or None)."""
+    aux, the prefill cache of ``forward_lm`` or None)."""
     _require_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cd), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
-    ks, vs = [], []
+    aux, cache = 0.0, {}
     if cfg.arch_type == "hybrid":
+        ks, vs = [], []
         for layer, p in _hybrid_layers(params, cfg):
             if layer.kind == "recurrent":
                 x = _rec_block_full(p, x, cfg, use_kernels=use_kernels)
                 continue
-            x, k, v = _attn_block_full(p, x, cfg, window=cfg.local_window,
-                                       positions=positions,
-                                       use_kernels=use_kernels)
+            x, _, k, v = _attn_block_full(p, x, cfg,
+                                          window=cfg.local_window,
+                                          positions=positions,
+                                          use_kernels=use_kernels)
             if return_kv and layer.tile is not None:
                 ks.append(k)
                 vs.append(v)
+        cache["att_kv"] = _stacked(ks, vs)
     elif cfg.arch_type == "ssm":
         for i in range(cfg.num_layers):
             p = _layer(params["blocks"], i)
@@ -221,15 +268,19 @@ def _forward_trunk(params, cfg, tokens, *, window, positions, use_kernels,
                                        use_kernels=use_kernels,
                                        chunk=cfg.ssm_chunk)
     else:
-        for i in range(cfg.num_layers):
-            x, k, v = _attn_block_full(_layer(params["blocks"], i), x, cfg,
-                                       window=window, positions=positions,
-                                       use_kernels=use_kernels)
-            if return_kv:
-                ks.append(k)
-                vs.append(v)
-    kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
-    return norm(params["final_norm"], x), kv
+        for ffn_kind, blocks, n, key in _attn_stacks(params, cfg):
+            ks, vs = [], []
+            for i in range(n):
+                x, a, k, v = _attn_block_full(
+                    _layer(blocks, i), x, cfg, window=window,
+                    positions=positions, use_kernels=use_kernels,
+                    ffn_kind=ffn_kind)
+                aux = aux + a
+                if return_kv:
+                    ks.append(k)
+                    vs.append(v)
+            cache[key] = _stacked(ks, vs)
+    return norm(params["final_norm"], x), aux, (cache if return_kv else None)
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +289,12 @@ def _forward_trunk(params, cfg, tokens, *, window, positions, use_kernels,
 
 
 def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
-    """Cache tensors for decode shapes; ``length`` = KV window kept. The
-    ssm and RG-LRU states have no sequence axis and stay fp32 whatever
-    ``dtype``, as in the reference. The hybrid keeps {"rec": its recurrent
-    layers' states, "att": a ring of min(length, cfg.local_window) keys
-    per attention layer}."""
+    """Cache tensors for decode shapes; ``length`` = KV window kept (a vlm
+    prefix's T positions included). A moe model's cache stacks all its
+    layers, the dense ones first. The ssm and RG-LRU states have no
+    sequence axis and stay fp32 whatever ``dtype``, as in the reference.
+    The hybrid keeps {"rec": its recurrent layers' states, "att": a ring
+    of min(length, cfg.local_window) keys per attention layer}."""
     _require_ported(cfg)
     if cfg.arch_type == "ssm":
         return ssm_mod.init_mamba_cache(cfg, batch, device=device)
@@ -283,15 +335,16 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False):
             y, _ = ssm_mod.mamba_decode(p["mamba"], norm(p["ln"], x),
                                         _layer(cache, i), cfg)
             x = x + y
-    else:
-        for i in range(cfg.num_layers):
-            p = _layer(params["blocks"], i)
-            h = norm(p["ln1"], x)
-            y, _ = attn.attend_decode(p["attn"], h, _layer(cache, i), pos,
-                                      cfg, ring=ring)
+    else:           # layer i of the stacks reads and writes cache layer i
+        layers = [(ffn_kind, _layer(blocks, j))
+                  for ffn_kind, blocks, n, _ in _attn_stacks(params, cfg)
+                  for j in range(n)]
+        for i, (ffn_kind, p) in enumerate(layers):
+            y, _ = attn.attend_decode(p["attn"], norm(p["ln1"], x),
+                                      _layer(cache, i), pos, cfg, ring=ring)
             x = x + y
-            h = norm(p["ln2"], x)
-            x = x + mlp(p["ffn"], h, cfg.activation, x.dtype)
+            y, _ = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
+            x = x + y
 
     x = norm(params["final_norm"], x)
     if cfg.tie_embeddings:

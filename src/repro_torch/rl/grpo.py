@@ -42,16 +42,21 @@ def grpo_loss_fn(params, cfg, batch, rl: GRPOConfig, ref_logprob=None):
       old_logprob (B, S)      — behavior-policy per-token logprobs
       advantage (B,)          — group-relative advantage per sample
       ref_logprob (B, S)      — optional frozen-reference logprobs (KL)
+      extra model inputs (vision_embeds / frames) pass through.
 
     The forward takes the plain attention and scan routes
     (``use_kernels=False``), as the reference's does: the flash and
-    ``mamba_scan`` kernels have no backward.
+    ``mamba_scan`` kernels have no backward. The moe load-balance loss is
+    added to the actor loss.
     """
     if ref_logprob is None:
         ref_logprob = batch.get("ref_logprob")
     tokens = batch["tokens"]
-    logits, aux = forward(params, cfg, {"tokens": tokens},
-                          use_kernels=False)
+    inputs = {k: v for k, v in batch.items()
+              if k in ("tokens", "vision_embeds", "frames")}
+    logits, aux = forward(params, cfg, inputs, use_kernels=False)
+    # a vlm prepends its vision positions; the text targets' predictions
+    # are the last S positions, as for a plain LM
     S = tokens.shape[1]
     logits = logits[:, -S:, :]
     mask = batch["response_mask"][:, 1:]
@@ -81,8 +86,9 @@ def grpo_train_step(state: TrainState, cfg, rl: GRPOConfig,
 def grpo_grad_step(params, cfg, rl: GRPOConfig, batch):
     """Gradients only (for streaming gradient accumulation): a tree like
     ``params`` of fresh gradient tensors, and the detached metrics. Every
-    parameter of a dense, ssm or hybrid model reaches the loss, so one that
-    autograd did not reach (a route that recorded no graph) raises."""
+    parameter of a dense, moe, vlm, ssm or hybrid model reaches the loss
+    (each expert through the whole capacity buffer, filled or not), so one
+    that autograd did not reach (a route that recorded no graph) raises."""
     return grad_and_metrics(grpo_loss_fn, params, cfg, batch, rl)
 
 

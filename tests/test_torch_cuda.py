@@ -71,7 +71,10 @@ FLASH_SHAPES = [
     # hd 160 (StableLM-2-12B; bf16 runs it at 192 with 64-key tiles): its
     # 32/8 heads, a group of 7, the 64-key tile's edges, Sq < Sk
     (1, 300, 300, 32, 8, 160), (2, 129, 129, 7, 1, 160), (1, 65, 65, 4, 2, 160),
-    (2, 63, 130, 4, 4, 160)]
+    (2, 63, 130, 4, 4, 160),
+    # Grok-1's and InternVL2-26B's 48/8 heads at hd 128 (a group of 6): a
+    # bucketed prefill, and a vision prefix of 1024 with a short prompt
+    (4, 256, 256, 48, 8, 128), (1, 1040, 1040, 48, 8, 128)]
 # none, 1, one K/V tile at hd 256 (32), 64, one tile below hd 256 (128),
 # wider than any S
 FLASH_WINDOWS = [0, 1, 32, 64, 128, 4096]
@@ -114,7 +117,8 @@ def test_flash_kernel_fp32_route(cuda_device):
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (2, 1024, 4, 2, 64), (1, 2048, 8, 8, 32), (3, 512, 4, 1, 128),
     (3, 100, 4, 2, 64), (4, 4099, 28, 4, 128), (2, 5, 16, 1, 64),
-    (4, 2048, 16, 1, 256), (3, 77, 16, 1, 256), (4, 2080, 32, 8, 160)])
+    (4, 2048, 16, 1, 256), (3, 77, 16, 1, 256), (4, 2080, 32, 8, 160),
+    (4, 2080, 48, 8, 128), (4, 1064, 48, 8, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -259,9 +263,12 @@ def test_engine_on_card_matches_cpu_forward(cuda_device, arch, head_dim):
 # 4 rows x 79 tokens, 4096 rows, full Qwen2.5 vocab, full Falcon-Mamba
 # vocab (65,024) and full RecurrentGemma vocab (256,000); V=259 (byte
 # vocab: bf16 rows start at 518-byte offsets, off the 16-byte grid) and
-# 2053.
+# 2053; Grok-1's 131,072 at its micro-batch of 16 x 79 rows, and
+# InternVL2-26B's odd 92,553 at 8 x 79 (rows off the 16-byte grid at full
+# width).
 VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
-                (316, 65024), (4096, 65024), (316, 256000)]
+                (316, 65024), (4096, 65024), (316, 256000), (1264, 131072),
+                (632, 92553), (7, 92553)]
 # blocks a row in the vocab pass: 0 leaves the choice to the C entry
 VOCAB_SPLITS = [0, 1, 2, 4, 8]
 
@@ -869,3 +876,114 @@ def test_embedding_gather_backward_on_card(cuda_device):
     plain = grad(lambda t: t[tokens])
     assert torch.equal(a, b)
     assert float((a - plain).abs().max()) <= 1e-6 * float(plain.abs().max())
+
+
+def _moe_cfg(top_k=None):
+    cfg = dataclasses.replace(get_config("grok_1_314b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    return cfg if top_k is None else dataclasses.replace(cfg, top_k=top_k)
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda_device):
+    """``moe_ffn`` of the reduced Grok on the card against the same call on
+    the CPU, fp32: the same picks per expert (4 slots' worth of one-token
+    rows, where half the picks drop, and a 2 x 40 block), the output and
+    the aux loss within 1e-4; and in bf16 its input gradient
+    bit-identical over two calls on the card."""
+    from repro_torch.models import init_params
+    from repro_torch.models import moe
+    cfg = _moe_cfg()
+    p = tree_map(lambda t: t[0],
+                 init_params(0, cfg, device=cuda_device)["blocks"]["ffn"])
+    p_cpu = tree_map(lambda t: t.cpu(), p)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    row = torch.randn((1, 1, cfg.d_model), generator=gen)
+    for x in (row.expand(4, 1, cfg.d_model).contiguous(),
+              torch.randn((2, 40, cfg.d_model), generator=gen)):
+        y, aux = moe.moe_ffn(p, x.to(cuda_device), cfg)
+        want, want_aux = moe.moe_ffn(p_cpu, x, cfg)
+        st = moe.moe_router_stats(p, x.to(cuda_device), cfg)
+        sc = moe.moe_router_stats(p_cpu, x, cfg)
+        assert torch.equal(st.tokens_per_expert.cpu(), sc.tokens_per_expert)
+        _assert_close_rel(y.cpu(), want, 1e-4)
+        _assert_close_rel(aux.cpu(), want_aux, 1e-5)
+    assert float(moe.moe_router_stats(
+        p_cpu, row.expand(4, 1, cfg.d_model), cfg).dropped_fraction) == 0.5
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    xg = x.to(cuda_device, torch.bfloat16)
+
+    def grad():
+        xx = xg.detach().requires_grad_()
+        out, a = moe.moe_ffn(p, xx, bf)
+        return torch.autograd.grad(out.float().square().sum() + a, xx)[0]
+    assert torch.equal(grad(), grad())
+
+
+def test_moe_engine_on_card_matches_cpu_forward(cuda_device):
+    """The continuous engine serving the reduced Grok on the card (both
+    attention kernels run), scored by a CPU forward, fp32. Every token is
+    routed to every expert, so no pick drops and the batched decode must
+    equal the forward."""
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    from repro_torch.models import forward, init_params
+    cfg = _moe_cfg(top_k=4)
+    params = init_params(0, cfg, device=cuda_device)
+    eng = ContinuousBatchingEngine(cfg, num_slots=2, max_len=64,
+                                   max_new_tokens=6, eos_id=-1,
+                                   dtype=torch.float32, device=cuda_device)
+    rng = np.random.default_rng(0)
+    seqs = [eng.make_sequence(rng.integers(3, 259, n)) for n in (5, 17, 9)]
+    n_d, n_f = decode_attention.launches, flash_attention.launches
+    fin, _ = eng.generate(params, seqs)
+    assert decode_attention.launches > n_d and flash_attention.launches > n_f
+    cpu = _to_cpu(params)
+    for q in fin:
+        with torch.no_grad():
+            logits, _ = forward(cpu, cfg, {"tokens": torch.tensor(q.tokens)[
+                None]})
+        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        want = [logp[t - 1, q.tokens[t]].item()
+                for t in range(q.prompt_len, len(q.tokens))]
+        np.testing.assert_allclose(q.logprobs[q.prompt_len:], want,
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_vlm_forward_on_card_matches_cpu(cuda_device):
+    """The reduced InternVL2's forward with ``vision_embeds`` through the
+    flash kernel on the card against the CPU's plain run, fp32."""
+    from repro_torch.models import forward, init_params
+    cfg = dataclasses.replace(get_config("internvl2_26b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    params = init_params(0, cfg, device=cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    batch = {"tokens": torch.randint(3, 259, (2, 12), generator=gen),
+             "vision_embeds": torch.randn(2, cfg.vision_tokens, cfg.d_model,
+                                          generator=gen)}
+    n = flash_attention.launches
+    with torch.no_grad():
+        got, _ = forward(params, cfg, tree_map(lambda t: t.to(cuda_device),
+                                               batch))
+        want, _ = forward(_to_cpu(params), cfg, batch)
+    assert flash_attention.launches == n + cfg.num_layers
+    _assert_close_rel(got.cpu(), want, 1e-4)
+
+
+def test_moe_grads_on_card_are_bit_identical_across_calls(cuda_device):
+    """Two GRPO gradient computations of the reduced Grok (4 rows of 24
+    tokens, top 2 of 4 experts) in bf16 through the kernels agree byte for
+    byte."""
+    from repro_torch.models import init_params
+    from repro_torch.rl.grpo import GRPOConfig, grpo_grad_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(_moe_cfg(), compute_dtype="bfloat16")
+    params = init_params(0, cfg, device=cuda_device)
+    batch = _grpo_microbatch(cfg, cuda_device)
+    rl = GRPOConfig(kl_coef=0.05)
+    g1, m1 = grpo_grad_step(params, cfg, rl, batch)
+    g2, m2 = grpo_grad_step(params, cfg, rl, batch)
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
