@@ -43,8 +43,8 @@ which raises on failure:
    forward and backward) against their plain versions at vocabs 152,064
    and 65,024 (4096 rows, and the trainer's micro-batch of 4 x 79 rows),
    at 256,000 (the trainer's rows), at the byte vocab 259 (rows off the
-   16-byte grid), at 131,072 (16 x 79 rows) and at the odd 92,553 (8 x 79
-   rows), bf16 and fp32, timed beside the plain versions, a
+   16-byte grid), at 131,072 (16 x 79 rows), at the odd 92,553 (8 x 79
+   rows), at 73,448 (4 x 79) and at 102,400 (16 x 79), bf16 and fp32, timed beside the plain versions, a
    one-call ``torch.log_softmax``/``torch.softmax`` yardstick and the
    card's bound; the two forward kernels also through their C entries
    alone, with their device time from ``torch.profiler`` and the blocks a
@@ -93,9 +93,10 @@ which raises on failure:
     forward (1 x 80), the long prefill (B=1, S=2048) and two ragged
     shapes: each row gives the path its entry took (short or long, held
     to the wrapper's mirror), its time through the wrapper and through
-    its C entry alone, its kernel's device time (``torch.profiler``), the
-    plain version's and the card's bound (no single PyTorch call computes
-    a selective scan);
+    its C entry alone, its kernel's device time (``torch.profiler``) and
+    its calls' device time queued behind a spin kernel (``queued_ms``,
+    the profiler's fallback), the plain version's and the card's bound
+    (no single PyTorch call computes a selective scan);
 12. full-width Falcon-Mamba-7B (all 64 layers, vocab 65,024, random
     weights from a seed) served through the fixed engine: 4 requests,
     16 new tokens each;
@@ -163,17 +164,41 @@ which raises on failure:
 30. one GRPO micro-batch of InternVL2-26B cut to 2 layers with its vision
     prefix (8 rows of 1024 + 80 positions), as phase 28 at the odd
     vocabulary 92,553;
-31. a JSON line per kernel and, last, the device line.
+31. full-width MiniCPM3-4B (dense with Multi-head Latent Attention: 40
+    heads, kv_lora 256, q_lora 768, tied vocab 73,448), all 62 layers,
+    served through the fixed engine as in phase 12, then its
+    teacher-forced rules (the absorbed decode against the naive forward)
+    and a trace; MLA has no kernel in the reference, so both attention
+    kernels must launch 0 times;
+32. one GRPO micro-batch of MiniCPM3-4B cut to 4 layers, as phase 15
+    (every MLA weight gets a gradient), then ``Trainer.fit`` on it as in
+    phase 16 (fixed rollout backend: the continuous engine refuses MLA,
+    as the reference's does), counting ``grpo_logprob`` and both
+    ``fused_rl_loss`` kernels, each of which must run, and the attention
+    kernels, which must not; then one actor update timed and traced;
+33. full-width DeepSeek-V2 (moe with MLA: 128 heads, kv_lora 512, q_lora
+    1536, 160 SwiGLU experts of 1536, top 6, 2 shared, vocab 102,400) cut
+    to 4 of its 60 layers (the dense layer and three moe layers), served
+    through the fixed engine as in phase 31; the routing of a short run
+    and the top-6 decode's distance from a forward over its tokens,
+    printed only (a decode call of 4 tokens keeps C = 1 pick an expert);
+    the teacher-forced rules on the same weights with every token routed
+    to all 160 experts, where nothing drops; 0 attention-kernel launches;
+34. one GRPO micro-batch of DeepSeek-V2 cut to 2 layers (one dense, one
+    moe), 16 rows of 80, as phase 28: ``grpo_logprob`` at V = 102,400 in
+    its reference stage, bf16 gradients twice bit for bit;
+35. a JSON line per kernel and, last, the device line.
 
 Phases 3, 4, 6b, 9, 10a (its profile and its trainer each), 10c, 10d, 12,
-16, 18, 23, 24, 27 and 29 set the launch counts of the kernels they check
-to 0 just before they start and read them just after (phases 12 and 18
-read after the teacher-forced forwards of phases 13 and 19); phases 28 and
-30 count their reference stage's and kernel route's launches. The kernel
-line's launches are the main paths' sums: the attention kernels over
-phases 3, 6b, 10a, 10c, 27 and 29 (flash also over 28 and 30), the loss
-kernels over 9, 10a, 10c, 28 and 30 (``grpo_logprob`` over 9, 10a, 10d,
-28 and 30), the scans over 16 and 23.
+16, 18, 23, 24, 27, 29, 31, 32's trainer and 33 set the launch counts of
+the kernels they check to 0 just before they start and read them just
+after (phases 12, 18, 31 and 33 read after their teacher-forced
+forwards); phases 28, 30, 32's and 34's micro-batches count their
+reference stage's and kernel route's launches. The kernel line's
+launches are the main paths' sums: the attention kernels over phases 3,
+6b, 10a, 10c, 27 and 29 (flash also over 28 and 30), the loss kernels
+over 9, 10a, 10c, 28, 30, 32 (micro-batch and trainer) and 34
+(``grpo_logprob`` also over 10d), the scans over 16 and 23.
 """
 from __future__ import annotations
 
@@ -243,6 +268,18 @@ VLM_TRAIN_ROWS = 8         # rows of 1024 vision and 80 text positions
 VLM_VOCAB = 92_553         # odd: bf16 rows start off the 16-byte grid
 VLM_REQUESTS = 4           # vision-prefixed requests, and their new tokens
 VLM_NEW = 16
+MLA_TRAIN_LAYERS = 4       # MiniCPM3-4B's training depth (0.44 B params;
+                           # served at all 62 layers, 4.07 B, 16.3 GB)
+MINICPM3_VOCAB = 73_448
+DEEPSEEK_LAYERS = 4        # DeepSeek-V2 served at full width: the dense
+                           # layer and three moe layers, 13.30 B params
+                           # (53.2 GB fp32) and up to 7.6 GB of one moe
+                           # layer's bf16 expert casts
+DEEPSEEK_TRAIN_LAYERS = 2  # its GRPO micro-batch: one dense, one moe layer
+DEEPSEEK_TRAIN_ROWS = 16   # rows of seq_len 80 in that micro-batch
+DEEPSEEK_VOCAB = 102_400
+ATTENTION_KERNELS = ("flash_attention", "decode_attention")
+LOSS_KERNELS = ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd")
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
 SMS = 132
 MAX_NEW = 32
@@ -342,7 +379,10 @@ def _device_ms(torch, fn, arg_sets, calls, name):
     traces of ``calls`` calls cycling through ``arg_sets`` (the calls' host
     time is not in it). A trace may miss some of a window's launches, or
     all of them, or misreport a few, so windows are taken until they hold
-    ``calls`` events (at most four) and the median is read."""
+    ``calls`` events (at most four) and the median is read. Where the four
+    windows hold none of its events (the profiler loses a whole trace's
+    kernel records now and then), the time is ``_queued_ms``'s, and a
+    ``device_ms_queued`` line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     times = []
@@ -358,7 +398,35 @@ def _device_ms(torch, fn, arg_sets, calls, name):
             return sorted(times)[len(times) // 2] / 1e3
     if times:
         return sorted(times)[len(times) // 2] / 1e3
-    raise AssertionError(f"profiler saw no {name} kernel in four windows")
+    ms = _queued_ms(torch, fn, arg_sets, calls)
+    print("device_ms_queued", json.dumps({"kernel": name, "ms": ms}))
+    return ms
+
+
+def _queued_ms(torch, fn, arg_sets, calls):
+    """Device time per call of ``fn`` with the host's issue time hidden and
+    no profiler: a spin kernel (``torch.cuda._sleep``) holds the stream
+    while the host queues ``calls`` calls, so the events around them time
+    the calls' kernels run back to back (all of the wrapper's kernels, not
+    only the named one). The spin is doubled until the host has queued
+    every call before the device reaches the first."""
+    cycles = 1 << 22                      # about 2 ms at the H100's clock
+    for _ in range(6):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        queued_first = not start.query()
+        torch.cuda.synchronize()
+        if queued_first:
+            return start.elapsed_time(end) / calls
+        cycles *= 2
+    raise AssertionError("the host did not queue the calls within the spin: "
+                         "the function waits for the device")
 
 
 def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
@@ -720,8 +788,10 @@ def _traced(torch, fn, phase):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     # device-side kernel events only: an aten op's device time repeats its
-    # kernels' time
-    events = [e for e in prof.key_averages()
+    # kernels' time. The averages are taken once: over a deep model's run
+    # they take many seconds
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -739,7 +809,7 @@ def _traced(torch, fn, phase):
             "share": e.self_device_time_total / busy_us}))
     # self CPU time of the ops and runtime calls the profiler sees (it
     # adds its own cost to each); the rest of the wall is Python
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in averages
            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
     ops.sort(key=lambda e: -e.self_cpu_time_total)
     print(json.dumps({"phase": f"{phase}_host", "wall_us": wall_us,
@@ -869,8 +939,9 @@ def _check_dx(dtype, shape, x, t, stats, dx):
 def phase_loss_kernels(torch, timed):
     """The three vocab-streaming kernels against their plain versions, at
     the Qwen2.5, Falcon-Mamba and RecurrentGemma vocabs, and at Grok-1's
-    (131,072) and InternVL2-26B's (92,553, odd) at their micro-batches'
-    rows; returns {name: row} at the ``timed`` (dtype, N, V)."""
+    (131,072), InternVL2-26B's (92,553, odd), MiniCPM3-4B's (73,448) and
+    DeepSeek-V2's (102,400) at their micro-batches' rows; returns {name:
+    row} at the ``timed`` (dtype, N, V)."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
@@ -891,7 +962,9 @@ def phase_loss_kernels(torch, timed):
         for N, VV in ((4096, V), (TRAIN_ROWS, V), (4096, SSM_VOCAB),
                       (TRAIN_ROWS, SSM_VOCAB), (TRAIN_ROWS, HYB_VOCAB),
                       (7, 259), (GROK_TRAIN_ROWS * 79, GROK_VOCAB),
-                      (VLM_TRAIN_ROWS * 79, VLM_VOCAB)):
+                      (VLM_TRAIN_ROWS * 79, VLM_VOCAB),
+                      (TRAIN_ROWS, MINICPM3_VOCAB),
+                      (DEEPSEEK_TRAIN_ROWS * 79, DEEPSEEK_VOCAB)):
             x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
                                                            dt)
             e = x.element_size()
@@ -1020,7 +1093,8 @@ def _watched_grads(cfg, g):
     weights (flash), every mamba parameter (the selective scan), or every
     RG-LRU parameter (its scan) and every attention weight of the hybrid's
     first tile and remainder; for the moe family the router, the experts'
-    ``up``, the head and the embedding."""
+    ``up``, the head and the embedding; under MLA every latent projection
+    of every stack (``dense_blocks`` too), beside the moe family's."""
     if cfg.arch_type == "ssm":
         return _flat("mamba", g["blocks"]["mamba"])
     if cfg.arch_type == "hybrid":
@@ -1033,12 +1107,20 @@ def _watched_grads(cfg, g):
             mix = "rec" if "rec" in blk else "attn"
             out.update(_flat(f"rem{i}/{mix}", blk[mix]))
         return out
+    out = {}
+    if cfg.attention == "mla":
+        for stack in ("dense_blocks", "blocks"):
+            if stack in g:
+                out.update(_flat(f"{stack}/attn", g[stack]["attn"]))
+    elif cfg.arch_type != "moe":
+        out = {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
     if cfg.arch_type == "moe":
         ffn = g["blocks"]["ffn"]
-        return {"router": ffn["router"]["w"],
-                "experts/up": ffn["experts"]["up"],
-                "lm_head": g["lm_head"]["w"], "embed": g["embed"]["table"]}
-    return {w: g["blocks"]["attn"][w]["w"] for w in ("wq", "wk", "wv")}
+        out.update({"router": ffn["router"]["w"],
+                    "experts/up": ffn["experts"]["up"],
+                    "lm_head": g["lm_head"]["w"],
+                    "embed": g["embed"]["table"]})
+    return out
 
 
 def _vision(torch, cfg, n):
@@ -1181,6 +1263,13 @@ def phase_microbatch(torch, cfg2, n_rows=4, vision=False, ref_stage=False,
     return launches
 
 
+def _expect_launches(what, launches, ran, idle=()):
+    """Every kernel of ``ran`` launched and none of ``idle``."""
+    if any(launches[n] == 0 for n in ran) or any(launches[n] for n in idle):
+        raise AssertionError(f"{what}: expected {list(ran)} to launch and "
+                             f"{list(idle)} not to: {launches}")
+
+
 def _counters(*names):
     """The kernel wrappers by name (their ``launches`` counts)."""
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1200,10 +1289,11 @@ def _counters(*names):
     return {n: every[n] for n in names}
 
 
-def phase_trainer(torch, cfg2, smi, backend, kernels, report=None,
+def phase_trainer(torch, cfg2, smi, backend, kernels, report=None, idle=(),
                   **overrides):
     """``Trainer.fit`` on the card; returns (trainer, launches of
-    ``kernels``, each of which must have run). ``overrides`` replace
+    ``kernels``, each of which must have run, and of ``idle``, none of
+    which may have run). ``overrides`` replace
     ``TrainerConfig`` fields (PPO: ``algorithm="ppo"``, ``kl_coef=0``);
     ``report``, a dict, receives the printed line's fields.
 
@@ -1223,7 +1313,7 @@ def phase_trainer(torch, cfg2, smi, backend, kernels, report=None,
         rollout_backend=backend, staleness=1, seed=SEED), **overrides})
     before = torch.cuda.memory_allocated()
     trainer = Trainer(tcfg, model_cfg=cfg2)
-    counters = _counters(*kernels)
+    counters = _counters(*kernels, *idle)
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -1254,8 +1344,7 @@ def phase_trainer(torch, cfg2, smi, backend, kernels, report=None,
                 raise AssertionError(f"critic: not finite: {m}")
     if max(res.staleness_seen) > tcfg.staleness + 1:
         raise AssertionError(f"staleness {max(res.staleness_seen)}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel never ran in training: {launches}")
+    _expect_launches(f"{cfg2.name} training", launches, kernels, idle)
     tel = res.telemetry
     sync = [v for v in tel["metrics"].get("weight_sync_seconds",
                                           {}).get("values", [])]
@@ -1904,14 +1993,17 @@ def _scan_times(torch, wrapper, entry, sets, kname, iters):
     calls, inputs cycled past L2. At the trainers' rows that is mostly the
     host's issue rate, which varies from window to window, so each is the
     median of three windows taken in turns. Beside them, its kernel's
-    device time (``torch.profiler``, the host's time not in it)."""
+    device time (``torch.profiler``, the host's time not in it) and the
+    calls' device time by ``_queued_ms``, the profiler's fallback, which
+    counts the gaps between queued kernels too."""
     ms, entry_ms = [], []
     with torch.no_grad():
         for _ in range(3):
             ms.append(_time_ms(torch, wrapper, sets, iters))
             entry_ms.append(_time_ms(torch, entry, sets, iters))
         return dict(ms=sorted(ms)[1], entry_ms=sorted(entry_ms)[1],
-                    device_ms=_device_ms(torch, wrapper, sets, 20, kname))
+                    device_ms=_device_ms(torch, wrapper, sets, 20, kname),
+                    queued_ms=_queued_ms(torch, wrapper, sets, 20))
 
 
 def _mamba_entry(torch, B, S, D, N, path=0):
@@ -2032,13 +2124,17 @@ def _fixed_run32(torch, params, prompts, max_new):
     return run32
 
 
-def phase_fixed_serving(torch, cfg, smi, kernels):
+def phase_fixed_serving(torch, cfg, smi, kernels, idle=()):
     """A full-width model served through the fixed engine (4 requests of at
     most FIXED_PROMPT_MAX prompt tokens, FIXED_NEW new tokens each), then
     the teacher-forced check (its full forwards run the scan kernels and,
     for the hybrid, ``flash_attention``) and a trace of a short serving
-    run. Returns the launches of ``kernels`` over serving and the check;
-    each must have run."""
+    run. A moe model's check runs on the same weights with every token
+    routed to every expert, where no pick can drop; before it, the routing
+    of a short run and the served decode's distance from a forward over
+    its tokens are printed. Returns the launches of ``kernels`` over
+    serving and the check, each of which must have run, and of ``idle``
+    (MLA: the attention kernels), none of which may have run."""
     import numpy as np
 
     from repro_torch.models import (count_params, decode_step, init_cache,
@@ -2048,12 +2144,12 @@ def phase_fixed_serving(torch, cfg, smi, kernels):
     params = init_params(SEED, cfg)
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
-          f"vocab={cfg.vocab_size} params={count_params(params)} "
-          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) init "
-          f"{time.monotonic() - t0:.3f}s")
+          f"attention={cfg.attention} vocab={cfg.vocab_size} "
+          f"params={count_params(params)} ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}) init {time.monotonic() - t0:.3f}s")
     # two short task prompts and two byte prompts cut to FIXED_PROMPT_MAX
     prompts = [p[:FIXED_PROMPT_MAX] for p in make_prompts(SEED)[6:10]]
-    counters = _counters(*kernels)
+    counters = _counters(*kernels, *idle)
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2086,20 +2182,52 @@ def phase_fixed_serving(torch, cfg, smi, kernels):
         "decode_step_s": steps[3:], "peak_mem_gb": peak}))
     del cache
 
-    _teacher_forced(torch, params, cfg, _rows_seqs(rows),
-                    _fixed_run32(torch, params, prompts[:2], 8))
+    tf_cfg, extra = cfg, None
+    if cfg.arch_type == "moe":
+        tf_cfg = dataclasses.replace(cfg, top_k=cfg.num_experts)
+        extra = {"top_k": tf_cfg.top_k}
+        _fixed_moe_routing(torch, params, cfg, rows, prompts, smi)
+        rows = generate(params, tf_cfg, prompts, SEED,
+                        max_new_tokens=FIXED_NEW, temperature=TEMPERATURE)
+    _teacher_forced(torch, params, tf_cfg, _rows_seqs(rows),
+                    _fixed_run32(torch, params, prompts[:2], 8), extra=extra)
     launches = {n: c.launches for n, c in counters.items()}
     print(json.dumps({"phase": "fixed_serving_launches", "model": cfg.name,
                       **launches}))
-    if min(launches.values()) == 0:
-        raise AssertionError(f"{cfg.name}: a kernel never ran in serving "
-                             f"and the teacher-forced check: {launches}")
+    _expect_launches(f"{cfg.name} serving and the teacher-forced check",
+                     launches, kernels, idle)
     _traced(torch, lambda: generate(
         params, cfg, [p[:16] for p in prompts], SEED, max_new_tokens=4,
         temperature=TEMPERATURE), f"profile_fixed_serving {cfg.name}")
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _fixed_moe_routing(torch, params, cfg, rows, prompts, smi):
+    """The moe routing of fixed-engine serving: the dropped share of the
+    picks over a short run (every call a decode call of one token a row)
+    and over forwards of two served sequences, and the served decode's
+    distance from those forwards, printed only (a 4-token decode call and
+    a forward keep other picks)."""
+    from repro_torch.rl import generate
+    seqs = _rows_seqs(rows[:2])
+    dist = {}
+
+    def run():
+        generate(params, cfg, [p[:16] for p in prompts], SEED,
+                 max_new_tokens=4, temperature=TEMPERATURE)
+        dist["d"] = _max_diff(_recorded(torch, seqs),
+                              _forward_logprobs(torch, params, cfg, seqs))
+    drops = _moe_drops(torch, run)
+    if not (drops["decode"]["calls"] and drops["prefill"]["calls"]):
+        raise AssertionError(f"the moe layers never ran: {drops}")
+    print(json.dumps({
+        "phase": "moe_serving", "model": cfg.name, "layers": cfg.num_layers,
+        "card": smi, "engine": "fixed", "routing": drops,
+        f"top{cfg.top_k}_decode_vs_bf16_forward_max_abs_logprob_diff":
+            dist["d"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
 
 
 def phase_rglru_scan(torch, timed):
@@ -2670,7 +2798,41 @@ def main():
                                     ref_stage=True, smi=smi).items():
         launches[name] += n
 
-    # -- 31. output -----------------------------------------------------------
+    # -- 31. MiniCPM3-4B (mla) served at full width ----------------------------
+    mini = get_config("minicpm3_4b")
+    phase_fixed_serving(torch, mini, smi, (), idle=ATTENTION_KERNELS)
+
+    # -- 32. a GRPO micro-batch and the trainer on MiniCPM3-4B -----------------
+    mini4 = dataclasses.replace(mini, num_layers=MLA_TRAIN_LAYERS)
+    mb_launches = phase_microbatch(torch, mini4, smi=smi)
+    _expect_launches("minicpm3-4b micro-batch", mb_launches,
+                     LOSS_KERNELS[1:], ("flash_attention",))
+    trainer, mla_launches = phase_trainer(torch, mini4, smi, "fixed",
+                                          LOSS_KERNELS,
+                                          idle=ATTENTION_KERNELS)
+    profile_actor_update(torch, trainer)
+    del trainer
+    _release(torch)
+    for name in LOSS_KERNELS:
+        launches[name] += mb_launches[name] + mla_launches[name]
+
+    # -- 33. DeepSeek-V2 (moe with mla) served at full width -------------------
+    deepseek = get_config("deepseek_v2_236b")
+    phase_fixed_serving(
+        torch, dataclasses.replace(deepseek, num_layers=DEEPSEEK_LAYERS),
+        smi, (), idle=ATTENTION_KERNELS)
+
+    # -- 34. one GRPO micro-batch of DeepSeek-V2 -------------------------------
+    mb_launches = phase_microbatch(
+        torch, dataclasses.replace(deepseek,
+                                   num_layers=DEEPSEEK_TRAIN_LAYERS),
+        DEEPSEEK_TRAIN_ROWS, ref_stage=True, smi=smi)
+    _expect_launches("deepseek-v2 micro-batch", mb_launches, LOSS_KERNELS,
+                     ("flash_attention",))
+    for name in LOSS_KERNELS:
+        launches[name] += mb_launches[name]
+
+    # -- 35. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",

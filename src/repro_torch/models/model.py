@@ -7,8 +7,8 @@
 ``batch`` is a dict holding tokens (B,S), plus ``vision_embeds`` (B,T,d)
 for the vlm family: projected patch embeddings prepended to the tokens
 (the vision encoder is a stub, as in the reference). The dense, moe, vlm,
-ssm and hybrid families are ported; MLA attention and the audio family
-raise ``NotImplementedError``.
+ssm and hybrid families are ported, with GQA or MLA attention (MiniCPM3,
+DeepSeek-V2); the audio family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +40,9 @@ def forward(params, cfg, batch, *, window=0, use_kernels=True,
     forward-only kernels, ``kernels/flash_attention`` for causal attention,
     ``kernels/mamba_scan`` for the ssm scan and ``kernels/rglru_scan`` for
     the RG-LRU; False (the actor update) takes the plain, differentiable
-    ``sdpa`` and scans. A vlm's logits cover its T vision positions too."""
+    ``sdpa`` and scans. MLA attention runs no kernel on any route: the
+    reference computes it with einsums outside any Pallas kernel
+    (``models/mla.py``). A vlm's logits cover its T vision positions too."""
     extra = batch.get("vision_embeds") if cfg.arch_type == "vlm" else None
     logits, aux, cache = transformer.forward_lm(
         params, cfg, batch["tokens"], extra_embeds=extra, window=window,

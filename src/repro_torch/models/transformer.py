@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly — the dense, moe, vlm, ssm and hybrid families.
+"""Decoder-only LM assembly — the dense, moe, vlm, ssm and hybrid families,
+with GQA or MLA attention.
 
 Layer stacks keep the reference's layout: one tree of tensors with a
 leading layer axis (``params["blocks"]["attn"]["wq"]["w"]`` is
@@ -9,7 +10,10 @@ by a Python loop where the reference used ``jax.lax.scan``. A moe model's
 ``dense_blocks``; its KV cache stacks all ``num_layers`` layers. The vlm
 family is the dense trunk behind ``extra_embeds`` (stubbed vision patch
 embeddings) prepended to the embedded tokens, which then start at
-position T. The hybrid (Griffin) family stacks whole (recurrent,
+position T. A trunk with ``cfg.attention == "mla"`` runs
+``models/mla.py`` in place of GQA: its blocks' ``attn`` hold the latent
+projections, and its cache (prefill and decode) holds the latents
+{"c_kv", "k_rope"} in place of {"k", "v"}. The hybrid (Griffin) family stacks whole (recurrent,
 recurrent, attention) tiles: ``params["tiles"]["{i}_{kind}"]`` has a
 leading tile axis, and the layers left over after the last whole tile are
 a list, ``params["rem"]``. Its attention blocks are local
@@ -19,8 +23,8 @@ load-balance loss summed over layers (0.0 for the other families);
 ``forward_hidden`` returns the trunk's final-norm hidden states that
 ``forward_lm`` unembeds (the PPO value head reads them).
 
-MLA attention and the audio family are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+The audio family is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -40,12 +45,12 @@ from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
 def _require_ported(cfg):
     if not (cfg.arch_type in ("ssm", "hybrid")
             or (cfg.arch_type in ("dense", "moe", "vlm")
-                and cfg.attention == "gqa")):
+                and cfg.attention in ("gqa", "mla"))):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP §1, item 12, "
             "'the other model families'); the port runs dense, moe and vlm "
-            "models with GQA attention, ssm and hybrid models")
+            "models with GQA or MLA attention, ssm and hybrid models")
 
 
 def _layer(tree, i):
@@ -62,12 +67,16 @@ def _layer(tree, i):
 
 def _init_block(gen, cfg, kind, layers, ffn_kind="dense"):
     """An attention block ({"ln1", "attn", "ln2", "ffn"}) or a recurrent
-    one ({"ln1", "rec", "ln2", "ffn"}), stacked over ``layers``; the ffn
-    is an MLP, or experts for ``ffn_kind="moe"``."""
+    one ({"ln1", "rec", "ln2", "ffn"}), stacked over ``layers``; the
+    attention is MLA's latent projections under ``cfg.attention == "mla"``;
+    the ffn is an MLP, or experts for ``ffn_kind="moe"``."""
     dt, dev = dtype_of(cfg.param_dtype), gen.device
-    mix = (rglru_mod.init_rglru_block(gen, cfg, dt, layers=layers)
-           if kind == "recurrent"
-           else attn.init_attention(gen, cfg, dt, layers=layers))
+    if kind == "recurrent":
+        mix = rglru_mod.init_rglru_block(gen, cfg, dt, layers=layers)
+    elif cfg.attention == "mla":
+        mix = mla_mod.init_mla(gen, cfg, dt, layers=layers)
+    else:
+        mix = attn.init_attention(gen, cfg, dt, layers=layers)
     ffn = (moe_mod.init_moe(gen, cfg, dt, layers=layers)
            if ffn_kind == "moe"
            else init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
@@ -178,12 +187,19 @@ def _ffn(p, h, cfg, ffn_kind):
 
 def _attn_block_full(p, x, cfg, *, window, positions, use_kernels,
                      ffn_kind="dense"):
+    """(x out, the moe aux loss or 0.0, the block's cache rows: {"k", "v"}
+    or MLA's {"c_kv", "k_rope"}). MLA runs no kernel on any route."""
     h = norm(p["ln1"], x)
-    y, k, v = attn.attend_full_kv(p["attn"], h, cfg, positions,
-                                  window=window, use_kernels=use_kernels)
+    if cfg.attention == "mla":
+        y, kv = mla_mod.mla_full_kv(p["attn"], h, cfg, positions,
+                                    window=window)
+    else:
+        y, k, v = attn.attend_full_kv(p["attn"], h, cfg, positions,
+                                      window=window, use_kernels=use_kernels)
+        kv = {"k": k, "v": v}
     x = x + y
     y, aux = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
-    return x + y, aux, k, v
+    return x + y, aux, kv
 
 
 def _rec_block_full(p, x, cfg, *, use_kernels):
@@ -196,7 +212,8 @@ def forward_lm(params, cfg, tokens, *, extra_embeds=None, window=0,
                return_cache=False, positions=None, use_kernels=True):
     """tokens: (B, S) int; extra_embeds: (B, T, d) prepended (the vlm's
     vision stub). Returns (logits (B, T + S, V), aux, cache_or_None); the
-    cache is {"kv": {"k", "v"}} of (L, B, T + S, KVH, hd), and a moe model
+    cache is {"kv": {"k", "v"}} of (L, B, T + S, KVH, hd), or under MLA
+    {"kv": {"c_kv" (L, B, S, r), "k_rope" (L, B, S, dr)}}, and a moe model
     with ``first_dense_layers`` keeps those layers' apart as
     {"dense_kv": ...}, as the reference does. use_kernels=False takes the
     plain, differentiable attention and scan routes (training). The ssm
@@ -229,8 +246,10 @@ def forward_hidden(params, cfg, tokens, *, extra_embeds=None,
                           use_kernels=use_kernels, return_kv=False)[0]
 
 
-def _stacked(ks, vs):
-    return {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+def _stacked(kvs):
+    """Per-layer cache rows {name: (B, S, ...)} stacked over layers."""
+    return {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]} \
+        if kvs else None
 
 
 def _forward_trunk(params, cfg, tokens, *, extra_embeds=None, window,
@@ -248,19 +267,17 @@ def _forward_trunk(params, cfg, tokens, *, extra_embeds=None, window,
 
     aux, cache = 0.0, {}
     if cfg.arch_type == "hybrid":
-        ks, vs = [], []
+        kvs = []
         for layer, p in _hybrid_layers(params, cfg):
             if layer.kind == "recurrent":
                 x = _rec_block_full(p, x, cfg, use_kernels=use_kernels)
                 continue
-            x, _, k, v = _attn_block_full(p, x, cfg,
-                                          window=cfg.local_window,
-                                          positions=positions,
-                                          use_kernels=use_kernels)
+            x, _, kv = _attn_block_full(p, x, cfg, window=cfg.local_window,
+                                        positions=positions,
+                                        use_kernels=use_kernels)
             if return_kv and layer.tile is not None:
-                ks.append(k)
-                vs.append(v)
-        cache["att_kv"] = _stacked(ks, vs)
+                kvs.append(kv)
+        cache["att_kv"] = _stacked(kvs)
     elif cfg.arch_type == "ssm":
         for i in range(cfg.num_layers):
             p = _layer(params["blocks"], i)
@@ -269,17 +286,16 @@ def _forward_trunk(params, cfg, tokens, *, extra_embeds=None, window,
                                        chunk=cfg.ssm_chunk)
     else:
         for ffn_kind, blocks, n, key in _attn_stacks(params, cfg):
-            ks, vs = [], []
+            kvs = []
             for i in range(n):
-                x, a, k, v = _attn_block_full(
+                x, a, kv = _attn_block_full(
                     _layer(blocks, i), x, cfg, window=window,
                     positions=positions, use_kernels=use_kernels,
                     ffn_kind=ffn_kind)
                 aux = aux + a
                 if return_kv:
-                    ks.append(k)
-                    vs.append(v)
-            cache[key] = _stacked(ks, vs)
+                    kvs.append(kv)
+            cache[key] = _stacked(kvs)
     return norm(params["final_norm"], x), aux, (cache if return_kv else None)
 
 
@@ -294,7 +310,8 @@ def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
     layers, the dense ones first. The ssm and RG-LRU states have no
     sequence axis and stay fp32 whatever ``dtype``, as in the reference.
     The hybrid keeps {"rec": its recurrent layers' states, "att": a ring
-    of min(length, cfg.local_window) keys per attention layer}."""
+    of min(length, cfg.local_window) keys per attention layer}; an MLA
+    trunk the latents {"c_kv", "k_rope"} of all its layers."""
     _require_ported(cfg)
     if cfg.arch_type == "ssm":
         return ssm_mod.init_mamba_cache(cfg, batch, device=device)
@@ -308,6 +325,9 @@ def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
                                           min(length, cfg.local_window),
                                           dtype, layers=n_att,
                                           device=device)}
+    if cfg.attention == "mla":
+        return mla_mod.init_mla_cache(cfg, batch, length, dtype,
+                                      device=device)
     return attn.init_kv_cache(cfg, batch, length, dtype, device=device)
 
 
@@ -336,12 +356,14 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False):
                                         _layer(cache, i), cfg)
             x = x + y
     else:           # layer i of the stacks reads and writes cache layer i
+        attend = (mla_mod.mla_decode if cfg.attention == "mla"
+                  else attn.attend_decode)
         layers = [(ffn_kind, _layer(blocks, j))
                   for ffn_kind, blocks, n, _ in _attn_stacks(params, cfg)
                   for j in range(n)]
         for i, (ffn_kind, p) in enumerate(layers):
-            y, _ = attn.attend_decode(p["attn"], norm(p["ln1"], x),
-                                      _layer(cache, i), pos, cfg, ring=ring)
+            y, _ = attend(p["attn"], norm(p["ln1"], x), _layer(cache, i),
+                          pos, cfg, ring=ring)
             x = x + y
             y, _ = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
             x = x + y

@@ -63,7 +63,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for n in ('repro_torch.rl.ppo', 'repro_torch.training.checkpoint',"
         " 'repro_torch.core.recovery.snapshot', 'repro_torch.api.service',"
         " 'repro_torch.autodiff', 'repro_torch.launch.serve',"
-        " 'repro_torch.core.planner.profiling', 'repro_torch.models.moe'):\n"
+        " 'repro_torch.core.planner.profiling', 'repro_torch.models.moe',"
+        " 'repro_torch.models.mla'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -265,10 +265,11 @@ def test_engine_on_card_matches_cpu_forward(cuda_device, arch, head_dim):
 # vocab: bf16 rows start at 518-byte offsets, off the 16-byte grid) and
 # 2053; Grok-1's 131,072 at its micro-batch of 16 x 79 rows, and
 # InternVL2-26B's odd 92,553 at 8 x 79 (rows off the 16-byte grid at full
-# width).
+# width); MiniCPM3-4B's 73,448 at the trainer's 4 x 79 and DeepSeek-V2's
+# 102,400 at its micro-batch of 16 x 79.
 VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
                 (316, 65024), (4096, 65024), (316, 256000), (1264, 131072),
-                (632, 92553), (7, 92553)]
+                (632, 92553), (7, 92553), (316, 73448), (1264, 102400)]
 # blocks a row in the vocab pass: 0 leaves the choice to the C entry
 VOCAB_SPLITS = [0, 1, 2, 4, 8]
 
@@ -987,3 +988,37 @@ def test_moe_grads_on_card_are_bit_identical_across_calls(cuda_device):
     assert all(torch.equal(m1[k], m2[k]) for k in m1)
     assert all(torch.equal(a, b)
                for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "deepseek_v2_236b"])
+def test_mla_decode_on_card_equals_naive_forward(cuda_device, arch):
+    """The reduced MiniCPM3 and DeepSeek-V2 with q_lora (DeepSeek routing
+    every token to every expert, where nothing drops) on the card, fp32:
+    the absorbed decode over an fp32 latent cache against the naive
+    forward over the same tokens, teacher-forced, within 1e-4; the
+    forward against the CPU's; no attention kernel launches (MLA has
+    none)."""
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params
+    cfg = dataclasses.replace(get_config(arch).reduced(), q_lora_rank=48,
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, top_k=cfg.num_experts)
+    params = init_params(0, cfg, device=cuda_device)
+    B, T = 2, 12
+    toks = torch.randint(3, 259, (B, T),
+                         generator=torch.Generator().manual_seed(5))
+    n = flash_attention.launches, decode_attention.launches
+    with torch.no_grad():
+        want, _ = forward(params, cfg, {"tokens": toks.to(cuda_device)})
+        cpu, _ = forward(_to_cpu(params), cfg, {"tokens": toks})
+        cache = init_cache(cfg, B, T, dtype=torch.float32,
+                           device=cuda_device)
+        for t in range(T):
+            got, cache = decode_step(params, cfg, cache,
+                                     toks[:, t].to(cuda_device),
+                                     torch.full((B,), t, device=cuda_device))
+            _assert_close_rel(got.cpu(), want[:, t].cpu(), 1e-4)
+    _assert_close_rel(want.cpu(), cpu, 1e-4)
+    assert (flash_attention.launches, decode_attention.launches) == n
