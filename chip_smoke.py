@@ -44,7 +44,8 @@ which raises on failure:
    and 65,024 (4096 rows, and the trainer's micro-batch of 4 x 79 rows),
    at 256,000 (the trainer's rows), at the byte vocab 259 (rows off the
    16-byte grid), at 131,072 (16 x 79 rows), at the odd 92,553 (8 x 79
-   rows), at 73,448 (4 x 79) and at 102,400 (16 x 79), bf16 and fp32, timed beside the plain versions, a
+   rows), at 73,448 (4 x 79), at 102,400 (16 x 79) and at the odd 51,865
+   (16 x 79), bf16 and fp32, timed beside the plain versions, a
    one-call ``torch.log_softmax``/``torch.softmax`` yardstick and the
    card's bound; the two forward kernels also through their C entries
    alone, with their device time from ``torch.profiler`` and the blocks a
@@ -187,18 +188,47 @@ which raises on failure:
 34. one GRPO micro-batch of DeepSeek-V2 cut to 2 layers (one dense, one
     moe), 16 rows of 80, as phase 28: ``grpo_logprob`` at V = 102,400 in
     its reference stage, bf16 gradients twice bit for bit;
-35. a JSON line per kernel and, last, the device line.
+35. full-width Whisper-tiny (audio encoder-decoder: 4 + 4 layers, 6/6
+    heads at hd 64, a GQA group of 1, vocab 51,865), random weights from a
+    seed, bf16: first ``flash_attention`` (64 decoder tokens) and
+    ``decode_attention`` (a ragged 128-key self cache, the 1500-key cross
+    cache) against their plain versions at its group-1 shapes, bf16 and
+    fp32; then 4 requests of seeded (1500, 384) frames served through the
+    model facade: encode, the cross cache, 64 tokens decoded
+    teacher-forced from position 0 and 64 greedy ones (tokens/s, step
+    p50, peak memory; ``decode_attention`` 2 a layer a step), and the
+    teacher-forced rules against a forward over the same tokens on the
+    kernel route;
+36. one GRPO micro-batch of Whisper-tiny at full width (16 rows of 80
+    tokens, 1500 frames each), as phase 28 at V = 51,865 (its reference
+    logprobs through flash and ``grpo_logprob``, bf16 gradients twice bit
+    for bit), then one ``grpo_train_step`` applying AdamW;
+37. on the card's 1 x 1 mesh (a one-rank NCCL group over a
+    ``HashStore``): ``sharded_decode_attention`` at the Qwen decode shape
+    of phase 2's timed row against ``decode_attention``'s plain version,
+    bf16 and fp32, timed beside the kernel; then full-width Qwen2.5-7B
+    (28 layers) through the continuous engine with ``mesh=``: 4 of the
+    phase-3 prompts, 32 new tokens, every request answered once, no page
+    leaked, 0 ``decode_attention`` launches, the teacher-forced rules,
+    tokens/s and step p50 beside phase 3's;
+38. ``ep_moe_ffn`` on that mesh at one DeepSeek-V2 moe layer at full
+    width (d 5120, 160 SwiGLU experts of 1536, top 6, 2 shared), 4 x 80
+    fp32 tokens at capacity factor 8.0, against ``moe_ffn`` at a
+    capacity that drops nothing (output scale over 0.5, as the
+    reference's check asks); then the group is torn down;
+39. a JSON line per kernel and, last, the device line.
 
 Phases 3, 4, 6b, 9, 10a (its profile and its trainer each), 10c, 10d, 12,
-16, 18, 23, 24, 27, 29, 31, 32's trainer and 33 set the launch counts of
-the kernels they check to 0 just before they start and read them just
-after (phases 12, 18, 31 and 33 read after their teacher-forced
-forwards); phases 28, 30, 32's and 34's micro-batches count their
-reference stage's and kernel route's launches. The kernel line's
-launches are the main paths' sums: the attention kernels over phases 3,
-6b, 10a, 10c, 27 and 29 (flash also over 28 and 30), the loss kernels
-over 9, 10a, 10c, 28, 30, 32 (micro-batch and trainer) and 34
-(``grpo_logprob`` also over 10d), the scans over 16 and 23.
+16, 18, 23, 24, 27, 29, 31, 32's trainer, 33, 35 and 37 set the launch
+counts of the kernels they check to 0 just before they start and read
+them just after (phases 12, 18, 31, 33 and 35 read after their
+teacher-forced forwards); phases 28, 30, 32's, 34's and 36's
+micro-batches count their reference stage's and kernel route's launches.
+The kernel line's launches are the main paths' sums: the attention
+kernels over phases 3, 6b, 10a, 10c, 27, 29 and 35 (flash also over 28,
+30, 36 and 37), the loss kernels over 9, 10a, 10c, 28, 30, 32
+(micro-batch and trainer), 34 and 36 (``grpo_logprob`` also over 10d),
+the scans over 16 and 23.
 """
 from __future__ import annotations
 
@@ -278,6 +308,15 @@ DEEPSEEK_LAYERS = 4        # DeepSeek-V2 served at full width: the dense
 DEEPSEEK_TRAIN_LAYERS = 2  # its GRPO micro-batch: one dense, one moe layer
 DEEPSEEK_TRAIN_ROWS = 16   # rows of seq_len 80 in that micro-batch
 DEEPSEEK_VOCAB = 102_400
+WHISPER_REQUESTS = 4       # Whisper-tiny served at full width: requests
+WHISPER_TF = 64            # of seeded frames, tokens decoded teacher-forced
+WHISPER_NEW = 64           # from position 0, then greedy new tokens
+WHISPER_HEADS = (6, 6, 64)  # query heads, KV heads, hd: a GQA group of 1
+WHISPER_TRAIN_ROWS = 16    # its GRPO micro-batch: rows of 80 tokens
+WHISPER_VOCAB = 51_865     # odd: bf16 rows start off the 16-byte grid
+MESH_REQUESTS = 4          # phase-3 prompts served with ``mesh=``
+EP_TOKENS = (4, 80)        # tokens through one DeepSeek-V2 moe layer with
+EP_CAPACITY = 8.0          # ``ep_moe_ffn`` (its capacity factor)
 ATTENTION_KERNELS = ("flash_attention", "decode_attention")
 LOSS_KERNELS = ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd")
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
@@ -701,10 +740,11 @@ def make_prompts(seed):
     return prompts
 
 
-def _forward_logprobs(torch, params, cfg, seqs, vision=None):
+def _forward_logprobs(torch, params, cfg, seqs, vision=None, frames=None):
     """For each (tokens, recorded logprobs, prompt length) in ``seqs``: the
     logprobs of its response tokens under one full forward; with
-    ``vision`` (one (T, d) prefix a sequence) behind its vision prefix."""
+    ``vision`` (one (T, d) prefix a sequence) behind its vision prefix,
+    with ``frames`` (one (F, d) an audio sequence) over its frames."""
     from repro_torch.models import forward
     dev = params["embed"]["table"].device
     out = []
@@ -713,6 +753,8 @@ def _forward_logprobs(torch, params, cfg, seqs, vision=None):
         batch = {"tokens": toks}
         if vision is not None:
             batch["vision_embeds"] = vision[i][None]
+        if frames is not None:
+            batch["frames"] = frames[i][None]
         with torch.no_grad():
             logits, _ = forward(params, cfg, batch)
         logits = logits[:, -toks.shape[1]:]
@@ -741,16 +783,17 @@ def _rows_seqs(rows):
 
 
 def _teacher_forced(torch, params, cfg, seqs16, run32, vision=None,
-                    extra=None):
+                    extra=None, frames=None):
     """The teacher-forced rules: an fp32 decode within FP32_TF_TOL of an
     fp32 forward over its tokens; a bf16 decode no further from an fp32
     forward than BF16_TF_FACTOR times the bf16 forward is. ``run32(cfg32)``
     decodes in fp32 and returns its sequences; ``vision`` holds the
-    sequences' vision prefixes, in their order (both runs' sequences come
-    from the first prompts); ``extra`` joins the printed line."""
+    sequences' vision prefixes and ``frames`` their audio frames, in their
+    order (both runs' sequences come from the first prompts); ``extra``
+    joins the printed line."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    fwd16 = _forward_logprobs(torch, params, cfg, seqs16, vision)
-    fwd32 = _forward_logprobs(torch, params, cfg32, seqs16, vision)
+    fwd16 = _forward_logprobs(torch, params, cfg, seqs16, vision, frames)
+    fwd32 = _forward_logprobs(torch, params, cfg32, seqs16, vision, frames)
     rec16 = _recorded(torch, seqs16)
     tf = {"bf16_decode_vs_bf16_forward": _max_diff(rec16, fwd16),
           "bf16_decode_vs_fp32_forward": _max_diff(rec16, fwd32),
@@ -758,7 +801,7 @@ def _teacher_forced(torch, params, cfg, seqs16, run32, vision=None,
     seqs32 = run32(cfg32)
     tf["fp32_decode_vs_fp32_forward"] = _max_diff(
         _recorded(torch, seqs32),
-        _forward_logprobs(torch, params, cfg32, seqs32, vision))
+        _forward_logprobs(torch, params, cfg32, seqs32, vision, frames))
     bf16_tol = BF16_TF_FACTOR * tf["bf16_forward_vs_fp32_forward"]
     print(json.dumps({"phase": "teacher_forced", "model": cfg.name,
                       **(extra or {}),
@@ -822,12 +865,14 @@ def _traced(torch, fn, phase):
     return out
 
 
-def serve_continuous(torch, cfg, eng, params, prompts, reg, smi):
+def serve_continuous(torch, cfg, eng, params, prompts, reg, smi, idle=(),
+                     phase="continuous_engine", report=None):
     """Serve ``prompts`` through the continuous-batching engine ``eng``,
     counting both attention kernels' launches from 0: every request
-    finishes, ids within the vocab, logprobs finite and <= 0, no page
-    leaked, both kernels launched. Prints the phase line; returns (the
-    finished sequences, the launches)."""
+    finishes once, ids within the vocab, logprobs finite and <= 0, no page
+    leaked, both kernels launched but those of ``idle``, which must not
+    be. Prints the ``phase`` line (``report``, a dict, receives its
+    fields); returns (the finished sequences, the launches)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     seqs = [eng.make_sequence(p) for p in prompts]
@@ -840,7 +885,8 @@ def serve_continuous(torch, cfg, eng, params, prompts, reg, smi):
     launches = {"decode_attention": decode_attention.launches,
                 "flash_attention": flash_attention.launches}
     n_new = sum(q.gen_len for q in done)
-    if len(done) != len(seqs) or paused:
+    if len(done) != len(seqs) or paused or \
+            sorted(q.uid for q in done) != sorted(q.uid for q in seqs):
         raise AssertionError(f"{len(done)}/{len(seqs)} requests finished")
     for q in done:
         if max(q.tokens) >= cfg.vocab_size or min(q.tokens) < 0:
@@ -850,21 +896,23 @@ def serve_continuous(torch, cfg, eng, params, prompts, reg, smi):
             raise AssertionError(f"uid {q.uid}: bad logprobs {lps[:4]}")
     if eng.pool.pages_in_use:
         raise AssertionError(f"{eng.pool.pages_in_use} KV pages leaked")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel never ran on the main path: "
-                             f"{launches}")
+    _expect_launches(phase, launches,
+                     [n for n in launches if n not in idle], idle)
     snap = reg.snapshot()
     pre = snap["rollout_prefill_seconds"]["values"][0]
     dec = snap["rollout_decode_step_seconds"]["values"][0]
-    print(json.dumps({
-        "phase": "continuous_engine", "model": cfg.name,
+    line = {
+        "phase": phase, "model": cfg.name,
         "layers": cfg.num_layers, "requests": len(done),
         "new_tokens": n_new, "wall_s": wall, "tokens_per_s": n_new / wall,
         "card": smi, "launches": launches,
         "prefill_dispatches": pre["count"], "prefill_s_sum": pre["sum"],
         "decode_steps": dec["count"], "decode_step_s_p50": dec["p50"],
         "decode_s_sum": dec["sum"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(line))
+    if report is not None:
+        report.update(line)
     return done, launches
 
 
@@ -939,9 +987,10 @@ def _check_dx(dtype, shape, x, t, stats, dx):
 def phase_loss_kernels(torch, timed):
     """The three vocab-streaming kernels against their plain versions, at
     the Qwen2.5, Falcon-Mamba and RecurrentGemma vocabs, and at Grok-1's
-    (131,072), InternVL2-26B's (92,553, odd), MiniCPM3-4B's (73,448) and
-    DeepSeek-V2's (102,400) at their micro-batches' rows; returns {name:
-    row} at the ``timed`` (dtype, N, V)."""
+    (131,072), InternVL2-26B's (92,553, odd), MiniCPM3-4B's (73,448),
+    DeepSeek-V2's (102,400) and Whisper-tiny's (51,865, odd) at their
+    micro-batches' rows; returns {name: row} at the ``timed`` (dtype, N,
+    V)."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd,
@@ -964,7 +1013,8 @@ def phase_loss_kernels(torch, timed):
                       (7, 259), (GROK_TRAIN_ROWS * 79, GROK_VOCAB),
                       (VLM_TRAIN_ROWS * 79, VLM_VOCAB),
                       (TRAIN_ROWS, MINICPM3_VOCAB),
-                      (DEEPSEEK_TRAIN_ROWS * 79, DEEPSEEK_VOCAB)):
+                      (DEEPSEEK_TRAIN_ROWS * 79, DEEPSEEK_VOCAB),
+                      (WHISPER_TRAIN_ROWS * 79, WHISPER_VOCAB)):
             x, t, old, ref, adv, dlp, g_ent = _loss_inputs(torch, gen, N, VV,
                                                            dt)
             e = x.element_size()
@@ -1094,9 +1144,19 @@ def _watched_grads(cfg, g):
     RG-LRU parameter (its scan) and every attention weight of the hybrid's
     first tile and remainder; for the moe family the router, the experts'
     ``up``, the head and the embedding; under MLA every latent projection
-    of every stack (``dense_blocks`` too), beside the moe family's."""
+    of every stack (``dense_blocks`` too), beside the moe family's; for
+    the audio family the q/k/v weights of the encoder's attention and of
+    the decoder's self- and cross-attention, both position tables and the
+    embedding."""
     if cfg.arch_type == "ssm":
         return _flat("mamba", g["blocks"]["mamba"])
+    if cfg.arch_type == "audio":
+        out = {f"{stack}/{mix}/{w}": g[stack][mix][w]["w"]
+               for stack, mixes in (("enc_blocks", ("attn",)),
+                                    ("dec_blocks", ("attn", "cross")))
+               for mix in mixes for w in ("wq", "wk", "wv")}
+        return {**out, "enc_pos": g["enc_pos"], "dec_pos": g["dec_pos"],
+                "embed": g["embed"]["table"]}
     if cfg.arch_type == "hybrid":
         out = {}
         for name, blk in g["tiles"].items():      # tile 0 of each stack
@@ -1130,9 +1190,18 @@ def _vision(torch, cfg, n):
                        device="cuda")
 
 
-def _microbatch(torch, cfg2, params, n_rows, vision, ref_stage):
+def _frames(torch, cfg, n):
+    """``n`` rows of seeded stub audio frames, (n, F, d) fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    return torch.randn((n, cfg.encoder_frames, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def _microbatch(torch, cfg2, params, n_rows, vision, ref_stage,
+                frames=False):
     """``n_rows`` synthetic rows of 80 tokens, packed; with ``vision`` the
-    batch carries stub patch embeddings. With ``ref_stage`` the reference
+    batch carries stub patch embeddings, with ``frames`` stub audio
+    frames. With ``ref_stage`` the reference
     logprobs come from the reference stage's own path (one forward through
     the flash kernel, ``token_logprobs`` through ``grpo_logprob``) and the
     behaviour's sit near them, so the ratios and the KL are of order
@@ -1143,10 +1212,12 @@ def _microbatch(torch, cfg2, params, n_rows, vision, ref_stage):
     batch = pack_rows(_train_rows(cfg2, n_rows, SEED), 80)
     if vision:
         batch["vision_embeds"] = _vision(torch, cfg2, n_rows)
+    if frames:
+        batch["frames"] = _frames(torch, cfg2, n_rows)
     if ref_stage:
         toks = batch["tokens"]
         inputs = {k: v for k, v in batch.items()
-                  if k in ("tokens", "vision_embeds")}
+                  if k in ("tokens", "vision_embeds", "frames")}
         with torch.no_grad():
             logits, _ = forward(params, cfg2, inputs)
             lp, _ = token_logprobs(logits[:, -toks.shape[1]:-1], toks[:, 1:])
@@ -1161,17 +1232,19 @@ def _microbatch(torch, cfg2, params, n_rows, vision, ref_stage):
 
 
 def phase_microbatch(torch, cfg2, n_rows=4, vision=False, ref_stage=False,
-                     smi=None):
+                     smi=None, frames=False, adamw=False):
     """One GRPO micro-batch (``n_rows`` x 80 tokens) at full width, cut
     depth: the kernels' loss against the plain loss on the same params and
     batch, in bf16 and fp32 compute. With ``vision`` the rows carry stub
-    patch embeddings; with ``ref_stage`` their reference logprobs come
-    through the flash and ``grpo_logprob`` kernels, the kernel route's
-    gradients are taken twice in bf16 and must be the same bits, and each
-    gradient tree waits in host memory while the next is taken (a moe
-    model's trees are too large to hold two on the card). Returns the
-    launches of the main path: the reference stage's and the kernel
-    route's."""
+    patch embeddings, with ``frames`` stub audio frames; with
+    ``ref_stage`` their reference logprobs come through the flash and
+    ``grpo_logprob`` kernels, the kernel route's gradients are taken twice
+    in bf16 and must be the same bits, and each gradient tree waits in
+    host memory while the next is taken (a moe model's trees are too large
+    to hold two on the card). With ``adamw`` one ``grpo_train_step`` in
+    bf16 then applies AdamW: the step counted, every parameter finite and
+    some moved. Returns the launches of the main path: the reference
+    stage's and the kernel route's."""
     from repro_torch.kernels.fused_rl_loss import (fused_rl_loss_bwd,
                                                    fused_rl_loss_fwd)
     from repro_torch.models import init_params
@@ -1182,14 +1255,17 @@ def phase_microbatch(torch, cfg2, n_rows=4, vision=False, ref_stage=False,
     params = init_params(SEED, cfg2)
     counters = _counters("flash_attention", "grpo_logprob")
     before = {n: c.launches for n, c in counters.items()}
-    batch = _microbatch(torch, cfg2, params, n_rows, vision, ref_stage)
+    batch = _microbatch(torch, cfg2, params, n_rows, vision, ref_stage,
+                        frames)
     launches = {n: c.launches - before[n] for n, c in counters.items()}
     launches.update(fused_rl_loss_fwd=0, fused_rl_loss_bwd=0)
     rl = GRPOConfig(kl_coef=0.05)
     tol = {"bfloat16": 2e-2, "float32": 1e-4}
     report = {"phase": "microbatch", "model": cfg2.name,
               "layers": cfg2.num_layers, "rows": n_rows,
-              "vision_tokens": cfg2.vision_tokens if vision else 0}
+              "vision_tokens": cfg2.vision_tokens if vision else 0,
+              "frames": cfg2.encoder_frames if frames else 0,
+              "vocab": cfg2.vocab_size}
     if smi is not None:
         report["card"] = smi
 
@@ -1255,12 +1331,44 @@ def phase_microbatch(torch, cfg2, n_rows=4, vision=False, ref_stage=False,
                                      "gave different bits")
             report[compute]["bit_identical_over_two_calls"] = same
         del g_k
+    if adamw:
+        report["adamw"], ran = _adamw_step(torch, params, cfg2, rl, batch)
+        for name, n in ran.items():
+            launches[name] += n
     report["launches"] = launches
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(report))
     del params, batch
     _release(torch)
     return launches
+
+
+def _adamw_step(torch, params, cfg, rl, batch):
+    """One ``grpo_train_step`` (gradients through the loss kernels, then
+    AdamW): the step counted, every new parameter finite, some moved, each
+    loss kernel launched exactly once. Returns the report's fields and the
+    launches the step made, read from the counters."""
+    from repro_torch.rl import grpo_train_step
+    from repro_torch.training import OptimizerConfig, TrainState
+    from repro_torch.tree import tree_leaves
+    counters = _counters("flash_attention", "grpo_logprob",
+                         "fused_rl_loss_fwd", "fused_rl_loss_bwd")
+    before = {n: c.launches for n, c in counters.items()}
+    new, m = grpo_train_step(TrainState.create(params), cfg, rl,
+                             OptimizerConfig(), batch)
+    ran = {n: c.launches - before[n] for n, c in counters.items()}
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(new.params), tree_leaves(params)))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(new.params))
+    if new.step != 1 or not finite or not moved > 0.0 or \
+            ran["fused_rl_loss_fwd"] != 1 or ran["fused_rl_loss_bwd"] != 1:
+        raise AssertionError(f"AdamW step: step {new.step}, finite "
+                             f"{finite}, largest change {moved}, "
+                             f"launches {ran}")
+    return {"step": new.step, "grad_norm": float(m["grad_norm"]),
+            "loss": float(m["loss"]), "max_param_change": moved,
+            "launches": ran}, ran
 
 
 def _expect_launches(what, launches, ran, idle=()):
@@ -2579,6 +2687,248 @@ def phase_vlm_serving(torch, smi):
     return launches
 
 
+def _whisper_decode(torch, params, cfg, frames, tokens, new, cache_dtype):
+    """The audio family's serving path through the model facade: encode
+    ``frames``, fill the cross cache, decode ``tokens`` (B, T)
+    teacher-forced from position 0, then ``new`` greedy tokens. Returns
+    (the sequences as (tokens, logprobs at TEMPERATURE, prompt length 1),
+    the greedy steps' seconds)."""
+    from repro_torch.models import decode_step, encdec, init_cache
+    B, T = tokens.shape
+    toks, lps, steps = [tokens[:, 0]], [torch.zeros(B, device="cuda")], []
+    with torch.no_grad():
+        cache = init_cache(cfg, B, T + new, dtype=cache_dtype)
+        encdec.precompute_cross_kv(params, cfg,
+                                   encdec.encode(params, cfg, frames), cache)
+        for t in range(T + new - 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits, cache = decode_step(params, cfg, cache, toks[-1],
+                                        torch.full((B,), t, device="cuda"))
+            nxt = tokens[:, t + 1] if t + 1 < T else logits.argmax(-1)
+            logp = torch.log_softmax(logits.float() / TEMPERATURE, dim=-1)
+            lps.append(logp.gather(1, nxt[:, None])[:, 0])
+            toks.append(nxt)
+            torch.cuda.synchronize()
+            if t + 1 >= T:
+                steps.append(time.monotonic() - t0)
+    toks = torch.stack(toks, 1).tolist()
+    lps = torch.stack(lps, 1).tolist()
+    return [(toks[i], lps[i], 1) for i in range(B)], steps
+
+
+def phase_whisper_serving(torch, smi):
+    """Whisper-tiny at full width (4 + 4 layers, 6/6 heads at hd 64, vocab
+    51,865), random weights from a seed, bf16 compute: first
+    ``flash_attention`` and ``decode_attention`` against their plain
+    versions at its group-1 shapes (flash over the decoder's 64 tokens,
+    decode over a ragged self cache and the 1500-key cross cache); then,
+    counting both kernels from 0, WHISPER_REQUESTS requests of seeded
+    frames served through the model facade (encode, cross cache,
+    WHISPER_TF tokens teacher-forced from position 0, WHISPER_NEW greedy
+    ones), the greedy steps timed, and the teacher-forced rules against a
+    forward over the same tokens on the kernel route (flash). Returns the
+    launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+    cfg = get_config("whisper_tiny")
+    H, KVH, hd = WHISPER_HEADS
+    if (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) != WHISPER_HEADS:
+        raise AssertionError(f"whisper_tiny heads changed: {cfg}")
+    B, T, S = WHISPER_REQUESTS, WHISPER_TF, WHISPER_TF + WHISPER_NEW
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        rows.append(_flash_row(torch, gen, dtype, B, T, H, KVH, hd, 0))
+        for keys, fill in ((S, [1, 40, 90, S]),
+                           (cfg.encoder_frames, [cfg.encoder_frames] * B)):
+            rows.append(_decode_row(torch, gen, dtype, B, keys, H, KVH, hd,
+                                    torch.tensor(fill, device=dev)))
+    for row in rows:
+        print("kernel_vs_plain", json.dumps(row))
+
+    t0 = time.monotonic()
+    params = init_params(SEED, cfg)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.encoder_layers}+{cfg.num_layers} layers "
+          f"d={cfg.d_model} vocab={cfg.vocab_size} "
+          f"params={count_params(params)} ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}) init {time.monotonic() - t0:.3f}s")
+    frames = _frames(torch, cfg, B)
+    tokens = torch.randint(3, cfg.vocab_size, (B, T), device=dev,
+                           generator=gen)
+    counters = _counters(*ATTENTION_KERNELS)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    seqs, steps = _whisper_decode(torch, params, cfg, frames, tokens,
+                                  WHISPER_NEW, torch.bfloat16)
+    wall = time.monotonic() - t0
+    decode_launches = counters["decode_attention"].launches
+    if decode_launches != 2 * cfg.num_layers * (S - 1):
+        raise AssertionError(f"whisper decode: {decode_launches} "
+                             "decode_attention launches, not 2 a layer a "
+                             "step")
+    print(json.dumps({
+        "phase": "whisper_serving", "model": cfg.name, "card": smi,
+        "requests": B, "frames": cfg.encoder_frames,
+        "teacher_forced_tokens": T, "new_tokens": B * WHISPER_NEW,
+        "wall_s": wall, "greedy_tokens_per_s": B * WHISPER_NEW / sum(steps),
+        "decode_step_s_p50": float(np.median(steps)),
+        "decode_attention_launches": decode_launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+
+    def run32(cfg32):
+        return _whisper_decode(torch, params, cfg32, frames, tokens,
+                               WHISPER_NEW, torch.float32)[0]
+    _teacher_forced(torch, params, cfg, seqs, run32, frames=frames)
+    launches = {n: c.launches for n, c in counters.items()}
+    print(json.dumps({"phase": "whisper_serving_launches", **launches}))
+    _expect_launches("whisper serving and the teacher-forced check",
+                     launches, ATTENTION_KERNELS)
+    del params
+    _release(torch)
+    return launches
+
+
+def phase_mesh_serving(torch, smi, mesh, prompts, max_len, fill, qwen):
+    """The mesh route on the card's 1 x 1 mesh (a one-rank NCCL group):
+    ``sharded_decode_attention`` at the Qwen decode shape (B=4, S=max_len,
+    28/4 heads, hd 128, ``fill`` valid keys a row) against
+    ``decode_attention``'s plain version in bf16 and fp32, timed beside
+    the kernel; then full-width Qwen2.5-7B (all 28 layers) served through
+    the continuous engine with ``mesh=`` (MESH_REQUESTS of the phase-3
+    prompts, MAX_NEW new tokens): every request answered once, no page
+    leaked, no ``decode_attention`` launch, and the teacher-forced rules
+    (the fp32 run on the mesh route too). ``qwen`` is phase 3's line,
+    printed beside. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.distributed import sharded_decode_attention
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.models import init_params
+    H, KVH, hd = QWEN_HEADS
+    B, S, dev = len(fill), max_len, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    valid = torch.arange(S, device=dev)[None, :] < torch.tensor(
+        fill, device=dev)[:, None]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, 1, H, hd), (B, S, KVH, hd),
+                                 (B, S, KVH, hd)))
+        n = decode_attention.launches
+        out = sharded_decode_attention(q, k, v, valid, mesh=mesh)
+        if decode_attention.launches != n:
+            raise AssertionError("the mesh route launched decode_attention")
+        err = _check("sharded_decode_attention", dtype, (B, S, H, KVH, hd),
+                     out, decode_attention_ref(q, k, v, valid))
+        sets = _copies(torch, (q, k, v, valid))
+        print("sharded_decode_vs_plain", json.dumps({
+            "dtype": dtype, "B": B, "S": S, "H": H, "KVH": KVH, "hd": hd,
+            "valid_keys": int(valid.sum()), "keys": B * S,
+            "max_abs_err": err, "card": smi,
+            "ms": _time_ms(torch, lambda q, k, v, m: sharded_decode_attention(
+                q, k, v, m, mesh=mesh), sets, 20),
+            "decode_attention_ms": _time_ms(torch, decode_attention, sets,
+                                            50),
+            "plain_ms": _time_ms(torch, decode_attention_ref, sets, 10)}))
+        del q, k, v, sets
+
+    cfg = get_config("qwen2_5_7b")
+    params = init_params(SEED, cfg)
+    reg = MetricsRegistry()
+    eng = ContinuousBatchingEngine(
+        cfg, num_slots=NUM_SLOTS, max_len=max_len, max_new_tokens=MAX_NEW,
+        temperature=TEMPERATURE, seed=SEED, metrics=reg, mesh=mesh)
+    line = {}
+    done, launches = serve_continuous(
+        torch, cfg, eng, params, prompts[:MESH_REQUESTS], reg, smi,
+        idle=("decode_attention",), phase="continuous_engine_mesh",
+        report=line)
+
+    def run32(cfg32):
+        eng32 = ContinuousBatchingEngine(
+            cfg32, num_slots=2, max_len=max_len, max_new_tokens=8,
+            temperature=TEMPERATURE, seed=SEED, dtype=torch.float32,
+            metrics=MetricsRegistry(), mesh=mesh)
+        done32, _ = eng32.generate(params, [eng32.make_sequence(p)
+                                            for p in prompts[:2]])
+        return _cb_seqs(done32)
+    _teacher_forced(torch, params, cfg, _cb_seqs(done), run32,
+                    extra={"mesh": list(mesh.shape)})
+    if decode_attention.launches:
+        raise AssertionError("the mesh route's teacher-forced runs launched "
+                             "decode_attention")
+    print(json.dumps({
+        "phase": "mesh_serving", "card": smi, "mesh": list(mesh.shape),
+        "requests": line["requests"], "tokens_per_s": line["tokens_per_s"],
+        "decode_step_s_p50": line["decode_step_s_p50"],
+        "phase3": {k: qwen[k] for k in ("requests", "tokens_per_s",
+                                        "decode_step_s_p50")}}))
+    del params, eng, done
+    _release(torch)
+    return launches
+
+
+def phase_ep_moe(torch, smi, mesh):
+    """``ep_moe_ffn`` on the 1 x 1 mesh at one DeepSeek-V2 moe layer at
+    full width (d 5120, 160 SwiGLU experts of 1536, top 6, 2 shared;
+    random weights from a seed, fp32 activations, as the reference's
+    check runs it): EP_TOKENS tokens at capacity factor EP_CAPACITY
+    against ``moe_ffn`` at a capacity that drops nothing (C = N), within
+    the fp32 bar of the output's scale, which must exceed 0.5."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ep_moe_ffn
+    from repro_torch.models.moe import init_moe, moe_ffn, moe_router_stats
+    cfg = dataclasses.replace(get_config("deepseek_v2_236b"),
+                              compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    torch.cuda.reset_peak_memory_stats()
+    p = init_moe(gen, cfg)
+    x = torch.randn((*EP_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    drop_free = cfg.num_experts / cfg.top_k       # C = N
+    with torch.no_grad():
+        dropped = float(moe_router_stats(p, x, cfg,
+                                         drop_free).dropped_fraction)
+        times = {}
+        for name, fn in (
+                ("ep_ms", lambda: ep_moe_ffn(p, x, cfg, mesh=mesh,
+                                             capacity_factor=EP_CAPACITY)),
+                ("moe_ffn_ms", lambda: moe_ffn(p, x, cfg,
+                                               capacity_factor=drop_free)[0])):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            y = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.monotonic() - t0) * 1e3
+            if name == "ep_ms":
+                y_ep = y
+    scale = float(y.abs().max())
+    err = float((y_ep - y).abs().max())
+    print(json.dumps({
+        "phase": "ep_moe", "card": smi, "mesh": list(mesh.shape),
+        "tokens": EP_TOKENS[0] * EP_TOKENS[1], "experts": cfg.num_experts,
+        "top_k": cfg.top_k, "shared": cfg.num_shared_experts,
+        "capacity_factor": EP_CAPACITY, "reference_dropped": dropped,
+        "max_abs_err": err, "scale": scale, **times,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    if dropped != 0.0 or not scale > 0.5 or not err <= TOL["float32"] * scale:
+        raise AssertionError(f"ep_moe_ffn vs moe_ffn: err {err}, scale "
+                             f"{scale}, dropped {dropped}")
+    del p, x, y, y_ep
+    _release(torch)
+
+
 def main():
     torch = _import_port()
 
@@ -2637,8 +2987,9 @@ def main():
           f"vocab={cfg.vocab_size} params={count_params(params)} "
           f"({cfg.param_dtype}, compute {cfg.compute_dtype}) "
           f"init {time.monotonic() - t0:.3f}s")
+    qwen_line = {}
     done, launches = serve_continuous(torch, cfg, eng, params, prompts, reg,
-                                      smi)
+                                      smi, report=qwen_line)
 
     # -- 4. fixed engine ---------------------------------------------------
     decode_attention.launches = 0
@@ -2832,7 +3183,38 @@ def main():
     for name in LOSS_KERNELS:
         launches[name] += mb_launches[name]
 
-    # -- 35. output -----------------------------------------------------------
+    # -- 35. Whisper-tiny (audio) served at full width -------------------------
+    for name, n in phase_whisper_serving(torch, smi).items():
+        launches[name] += n
+
+    # -- 36. one GRPO micro-batch of Whisper-tiny with its frames --------------
+    mb_launches = phase_microbatch(
+        torch, get_config("whisper_tiny"), WHISPER_TRAIN_ROWS, frames=True,
+        ref_stage=True, smi=smi, adamw=True)
+    _expect_launches("whisper-tiny micro-batch", mb_launches,
+                     ("flash_attention", *LOSS_KERNELS))
+    for name, n in mb_launches.items():
+        launches[name] += n
+
+    # -- 37-38. the mesh route on a one-rank NCCL group ------------------------
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        # -- 37. sharded flash-decode, and Qwen2.5-7B served with mesh= ------
+        launches["flash_attention"] += phase_mesh_serving(
+            torch, smi, mesh, prompts, max_len,
+            krows["decode_attention"]["filled"],
+            qwen_line)["flash_attention"]
+        # -- 38. expert parallelism at one DeepSeek-V2 moe layer -------------
+        phase_ep_moe(torch, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+
+    # -- 39. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",

@@ -77,7 +77,8 @@ def _prefill_step(params, cfg, toks, lens, uids, seed, *, temperature):
 
 @torch.no_grad()
 def _decode_round_step(params, cfg, k_pool, v_pool, page_table, pos, tok,
-                       uids, seed, *, page_size: int, temperature: float):
+                       uids, seed, *, page_size: int, temperature: float,
+                       mesh=None):
     """One continuous-batching decode step over every slot.
 
     Gathers each slot's pages into a dense per-slot view, runs the
@@ -96,7 +97,7 @@ def _decode_round_step(params, cfg, k_pool, v_pool, page_table, pos, tok,
     v_view = v_pool[:, page_table].reshape(L, B, S, KVH, hd)
     pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
     logits, new_cache = decode_step(params, cfg, {"k": k_view, "v": v_view},
-                                    tok, pos_t)
+                                    tok, pos_t, mesh=mesh)
     bidx = torch.arange(B, device=dev)
     # pos < S always, so no clamp is needed here (torch would raise)
     phys = page_table[bidx, pos_t // page_size]                 # (B,)
@@ -125,13 +126,20 @@ class ContinuousBatchingEngine:
         keeping every sequence's sampling stream stable.
     device: where the KV pool lives and the steps run (``cuda`` unless
         the caller passes another); ``params`` must live there too.
+    mesh: optional ``DeviceMesh``: decode attention goes through
+        ``distributed/flash_decode``'s sharded partial-softmax combine
+        over its "model" axis in place of ``kernels/decode_attention``
+        (``max_len`` must split evenly over that axis). Every rank of the
+        mesh runs the engine on the same requests and samples the same
+        tokens.
     """
 
     def __init__(self, cfg, *, num_slots: int = 4, page_size: int = 8,
                  max_len: int = 64, num_pages: Optional[int] = None,
                  max_new_tokens: int = 8, temperature: float = 1.0,
                  eos_id: int = ByteTokenizer.eos_id, seed: int = 0,
-                 uid_start: int = 0, dtype=None, device=None, metrics=None):
+                 uid_start: int = 0, dtype=None, device=None, mesh=None,
+                 metrics=None):
         if cfg.arch_type not in SUPPORTED_ARCHS or cfg.attention == "mla":
             raise ValueError(
                 f"continuous batching supports GQA {SUPPORTED_ARCHS} archs "
@@ -139,6 +147,7 @@ class ContinuousBatchingEngine:
                 f"attention={cfg.attention!r})")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.page_size = int(page_size)
         self.max_len = -(-int(max_len) // self.page_size) * self.page_size
         pages_per_seq = self.max_len // self.page_size
@@ -372,7 +381,7 @@ class ContinuousBatchingEngine:
             torch.from_numpy(page_table).to(self.device), pos,
             torch.tensor(tok, dtype=torch.long, device=self.device), uids,
             self.seed, page_size=self.page_size,
-            temperature=self.temperature)
+            temperature=self.temperature, mesh=self.mesh)
         nxt, lp = nxt.tolist(), lp.tolist()
         for s, q in stepping:
             self.pool.kv_len[q.uid] = q.length

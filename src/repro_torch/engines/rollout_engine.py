@@ -43,6 +43,7 @@ from repro_torch.engines.adapter import EngineRegistry, RLAdapter
 from repro_torch.rl.advantage import grpo_advantages
 from repro_torch.rl.reward import math_reward
 from repro_torch.rl.sampling import generate as sample_generate
+from repro_torch.rl.sampling import require_token_model
 
 
 @EngineRegistry.register("torch_rollout")
@@ -53,7 +54,7 @@ class RolloutEngine(RLAdapter):
                  backend: str = "fixed", cb_slots: int = 4,
                  cb_page_size: int = 8, cb_max_len: int = 0,
                  cb_seed: int = 0, ref_rows: int, ref_len: int,
-                 device=None):
+                 device=None, mesh=None):
         """ref_params: frozen reference policy — enables the
         ``compute_log_prob`` reference-inference task (per-token ref
         logprobs for the KL penalty).
@@ -77,7 +78,14 @@ class RolloutEngine(RLAdapter):
 
         device: where sampling and reference inference run (``cuda``
         unless the caller passes another); params and ``ref_params`` live
-        there."""
+        there.
+
+        mesh: optional ``DeviceMesh`` handed to the continuous backend
+        (its decode attention goes through the sharded combine), as in
+        the reference; the fixed backend does not take it.
+
+        Refuses the audio family (``rl.sampling.require_token_model``)."""
+        require_token_model(cfg, "RolloutEngine")
         if backend not in ("fixed", "continuous"):
             raise ValueError(f"unknown rollout backend {backend!r}")
         self.cfg = cfg
@@ -95,6 +103,7 @@ class RolloutEngine(RLAdapter):
         self.ref_rows = max(1, int(ref_rows))
         self.ref_len = int(ref_len)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._cb = None                  # lazy ContinuousBatchingEngine
         self._groups: dict = {}          # fused path: gid -> finished members
         self._reward_groups: dict = {}   # staged path: gid -> (member, idx, r)
@@ -166,7 +175,7 @@ class RolloutEngine(RLAdapter):
                     max_new_tokens=self.max_new_tokens,
                     temperature=self.temperature, seed=self.cb_seed,
                     uid_start=self.cb_uid_start if eng is None
-                    else eng._next_uid, device=self.device)
+                    else eng._next_uid, device=self.device, mesh=self.mesh)
             return self._cb
 
     def _member_from_seq(self, q) -> dict:

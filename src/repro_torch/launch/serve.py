@@ -141,11 +141,13 @@ def main(argv=None):
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.device import resolve_device
     from repro_torch.models import init_params
+    from repro_torch.rl.sampling import require_token_model
 
     device = resolve_device(args.device)
     tok = ByteTokenizer()
     cfg = dataclasses.replace(get_config(args.arch).reduced(),
                               vocab_size=tok.vocab_size)
+    require_token_model(cfg, "launch.serve")
     params = init_params(args.seed, cfg, device=device)
     ds = PromptDataset(seed=args.seed)
     prompts = ds.prompts_for_step(0, args.requests)

@@ -7,8 +7,9 @@ Three entry points, as in the reference:
 
 Causal self-attention goes through ``kernels/flash_attention`` unless the
 caller passes ``use_kernels=False``, and decode attention through
-``kernels/decode_attention``: on CUDA tensors those launch the hand-written
-kernels, on CPU tensors they run the kernels' plain versions. The flash
+``kernels/decode_attention`` unless the caller passes a ``mesh``: on CUDA
+tensors those launch the hand-written kernels, on CPU tensors they run
+the kernels' plain versions. The flash
 kernel has no backward (nor has the reference's Pallas kernel), so the
 training forward takes ``use_kernels=False``: ``sdpa`` with a causal mask
 (softmax weights cast to the compute dtype before ``p@v``), the
@@ -131,7 +132,8 @@ def init_kv_cache(cfg, batch, length, dtype=torch.bfloat16, layers=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True):
+def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
+                  mesh=None):
     """One-token decode.
 
     x: (B, 1, d); layer_cache: {"k","v"} of (B, S_cache, nkv, hd);
@@ -139,6 +141,10 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True):
     ring=True → sliding-window ring buffer (cache slot = pos % S_cache).
     write=False → read-only attention over the full provided cache (used for
     cross-attention with precomputed encoder K/V); no rotary on q either.
+    mesh → the attention goes through ``distributed/flash_decode``'s
+    sharded partial-softmax combine (cache seq dim sharded over the mesh's
+    "model" axis) and launches no ``decode_attention``, as the reference
+    routes it.
 
     The new K/V row is written into ``layer_cache`` in place (the reference
     rebuilt the arrays). Returns (out (B,1,d), layer_cache).
@@ -170,7 +176,13 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True):
     else:
         valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
 
-    out = decode_attention(q.contiguous(), k_cache.to(cd).contiguous(),
-                           v_cache.to(cd).contiguous(), valid)
+    if mesh is not None:
+        from repro_torch.distributed.flash_decode import \
+            sharded_decode_attention
+        out = sharded_decode_attention(q, k_cache.to(cd), v_cache.to(cd),
+                                       valid, mesh=mesh)
+    else:
+        out = decode_attention(q.contiguous(), k_cache.to(cd).contiguous(),
+                               v_cache.to(cd).contiguous(), valid)
     out = dense(p["wo"], out.reshape(B, 1, nh * hd), cd)
     return out, layer_cache

@@ -6,28 +6,29 @@
 
 ``batch`` is a dict holding tokens (B,S), plus ``vision_embeds`` (B,T,d)
 for the vlm family: projected patch embeddings prepended to the tokens
-(the vision encoder is a stub, as in the reference). The dense, moe, vlm,
-ssm and hybrid families are ported, with GQA or MLA attention (MiniCPM3,
-DeepSeek-V2); the audio family raises ``NotImplementedError``.
+(the vision encoder is a stub, as in the reference), or ``frames``
+(B,F,d) for the audio family: the encoder's stubbed conv/mel frame
+embeddings (``models/encdec.py``; fill its cross cache with
+``encdec.precompute_cross_kv`` before decoding). Every family of the
+reference is ported: dense, moe, vlm, ssm, hybrid and audio, with GQA or
+MLA attention (MiniCPM3, DeepSeek-V2).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.tree import tree_leaves
 
 
 def init_params(seed: int, cfg, *, device=None):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (``cuda`` unless the caller passes another)."""
-    if cfg.arch_type == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family is not ported yet (ROADMAP §1, "
-            "item 12, 'the other model families')")
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
+    if cfg.arch_type == "audio":
+        return encdec.init_encdec(gen, cfg)
     return transformer.init_lm(gen, cfg)
 
 
@@ -42,7 +43,15 @@ def forward(params, cfg, batch, *, window=0, use_kernels=True,
     the RG-LRU; False (the actor update) takes the plain, differentiable
     ``sdpa`` and scans. MLA attention runs no kernel on any route: the
     reference computes it with einsums outside any Pallas kernel
-    (``models/mla.py``). A vlm's logits cover its T vision positions too."""
+    (``models/mla.py``). A vlm's logits cover its T vision positions too.
+    The audio family's encoder and cross-attention are non-causal and take
+    the plain ``sdpa`` on every route; its cache is None, as in the
+    reference, and ``window`` does not reach it."""
+    if cfg.arch_type == "audio":
+        memory = encdec.encode(params, cfg, batch["frames"])
+        logits, aux, cache = encdec.decode_train(
+            params, cfg, memory, batch["tokens"], use_kernels=use_kernels)
+        return (logits, aux, cache) if return_cache else (logits, aux)
     extra = batch.get("vision_embeds") if cfg.arch_type == "vlm" else None
     logits, aux, cache = transformer.forward_lm(
         params, cfg, batch["tokens"], extra_embeds=extra, window=window,
@@ -54,14 +63,24 @@ def forward(params, cfg, batch, *, window=0, use_kernels=True,
 
 def init_cache(cfg, batch_size, length, dtype=torch.bfloat16, *,
                device=None):
+    if cfg.arch_type == "audio":
+        return encdec.init_dec_cache(cfg, batch_size, length, dtype,
+                                     device=resolve_device(device))
     return transformer.init_cache(cfg, batch_size, length, dtype,
                                   device=resolve_device(device))
 
 
-def decode_step(params, cfg, cache, token, pos, *, ring=False):
+def decode_step(params, cfg, cache, token, pos, *, ring=False, mesh=None):
     """One-token decode. token/pos: (B,). Returns (logits (B,V), cache);
-    the cache is updated in place."""
-    return transformer.decode_lm(params, cfg, cache, token, pos, ring=ring)
+    the cache is updated in place. ``mesh`` (a ``DeviceMesh`` with a
+    ``"model"`` axis) routes the dense, moe and vlm GQA decode attention
+    through ``distributed/flash_decode``'s sharded partial-softmax combine
+    in place of ``kernels/decode_attention``; the other families ignore
+    it, as the reference's do. The audio family ignores ``ring`` too."""
+    if cfg.arch_type == "audio":
+        return encdec.decode_step(params, cfg, cache, token, pos)
+    return transformer.decode_lm(params, cfg, cache, token, pos, ring=ring,
+                                 mesh=mesh)
 
 
 def decode_window(cfg, shape_name: str) -> tuple[int, bool]:

@@ -20,7 +20,10 @@ gradients are the same bits on every call:
   each token's ``k`` of them front to back; the reference's scatter-add
   adds the same terms.
 
-``shard_experts`` (expert parallelism) belongs to ROADMAP item 13.
+``shard_experts``, where given, is applied to the (E, C, d) dispatch
+buffer and to the experts' output buffer, as in the reference (a hook to
+place them, e.g. sharded over an expert axis);
+``distributed/expert_parallel.py`` is the explicit all-to-all path.
 """
 from __future__ import annotations
 
@@ -89,11 +92,8 @@ def _router_probs(p, xf):
 
 
 def moe_ffn(p, x, cfg, *, capacity_factor=1.25, shard_experts=None):
-    """x: (B, S, d) -> (y, aux_loss)."""
-    if shard_experts is not None:
-        raise NotImplementedError(
-            "shard_experts (expert parallelism) is not ported yet "
-            "(ROADMAP §1, item 13, 'distributed/')")
+    """x: (B, S, d) -> (y, aux_loss). shard_experts: optional callable
+    applied to the (E, C, d) dispatch and output buffers."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     cd = x.dtype
@@ -134,8 +134,12 @@ def moe_ffn(p, x, cfg, *, capacity_factor=1.25, shard_experts=None):
     token_of = order // k
     buf = xf.new_zeros((E * C + 1, d)).index_put(
         (row,), _Gather.apply(xf, token_of))
-    out_buf = _expert_ffn(p["experts"], buf[:E * C].view(E, C, d),
-                          cfg.activation, cd)
+    buf = buf[:E * C].view(E, C, d)
+    if shard_experts is not None:
+        buf = shard_experts(buf)
+    out_buf = _expert_ffn(p["experts"], buf, cfg.activation, cd)
+    if shard_experts is not None:
+        out_buf = shard_experts(out_buf)
 
     # ---- combine -----------------------------------------------------------
     gathered = torch.cat([out_buf.reshape(E * C, d),

@@ -23,8 +23,8 @@ load-balance loss summed over layers (0.0 for the other families);
 ``forward_hidden`` returns the trunk's final-norm hidden states that
 ``forward_lm`` unembeds (the PPO value head reads them).
 
-The audio family is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+The audio family (an encoder-decoder) is ``models/encdec.py``; the
+model facade routes it there, and this module refuses it.
 """
 from __future__ import annotations
 
@@ -42,15 +42,16 @@ from repro_torch.models.layers import (dense, dtype_of, embed, init_dense,
                                        mlp, norm, unembed)
 
 
-def _require_ported(cfg):
+def _require_trunk(cfg):
     if not (cfg.arch_type in ("ssm", "hybrid")
             or (cfg.arch_type in ("dense", "moe", "vlm")
                 and cfg.attention in ("gqa", "mla"))):
-        raise NotImplementedError(
+        raise ValueError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
-            f"{cfg.attention!r} is not ported yet (ROADMAP §1, item 12, "
-            "'the other model families'); the port runs dense, moe and vlm "
-            "models with GQA or MLA attention, ssm and hybrid models")
+            f"{cfg.attention!r} has no decoder-only trunk; this module runs "
+            "dense, moe and vlm models with GQA or MLA attention, ssm and "
+            "hybrid models (the audio family is models/encdec.py, reached "
+            "through the models facade)")
 
 
 def _layer(tree, i):
@@ -92,7 +93,7 @@ def init_lm(gen, cfg):
     ``gen``'s device at the reference's init scales (normal 0.02, zero
     biases, unit norm scales; the mamba and RG-LRU blocks' own,
     ``models/ssm.py`` and ``models/rglru.py``)."""
-    _require_ported(cfg)
+    _require_trunk(cfg)
     dt, dev = dtype_of(cfg.param_dtype), gen.device
     L = (cfg.num_layers,)
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -256,7 +257,7 @@ def _forward_trunk(params, cfg, tokens, *, extra_embeds=None, window,
                    positions, use_kernels, return_kv):
     """The forward up to and including ``final_norm``: (hidden (B, S, d),
     aux, the prefill cache of ``forward_lm`` or None)."""
-    _require_ported(cfg)
+    _require_trunk(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
     if extra_embeds is not None:
@@ -312,7 +313,7 @@ def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
     The hybrid keeps {"rec": its recurrent layers' states, "att": a ring
     of min(length, cfg.local_window) keys per attention layer}; an MLA
     trunk the latents {"c_kv", "k_rope"} of all its layers."""
-    _require_ported(cfg)
+    _require_trunk(cfg)
     if cfg.arch_type == "ssm":
         return ssm_mod.init_mamba_cache(cfg, batch, device=device)
     if cfg.arch_type == "hybrid":
@@ -331,10 +332,15 @@ def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
     return attn.init_kv_cache(cfg, batch, length, dtype, device=device)
 
 
-def decode_lm(params, cfg, cache, token, pos, *, ring=False):
+def decode_lm(params, cfg, cache, token, pos, *, ring=False, mesh=None):
     """token: (B,) int; pos: (B,) absolute positions.
-    Returns (logits (B, V), cache); the cache is updated in place."""
-    _require_ported(cfg)
+    Returns (logits (B, V), cache); the cache is updated in place.
+
+    ``mesh`` routes the GQA attention of the dense, moe and vlm trunks
+    through ``distributed/flash_decode``'s sharded combine (no
+    ``decode_attention`` launch), as the reference's does; MLA, the ssm
+    and the hybrid ignore it, as the reference's do."""
+    _require_trunk(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], token[:, None], cd)  # (B,1,d)
     if cfg.arch_type == "hybrid":
@@ -356,14 +362,17 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False):
                                         _layer(cache, i), cfg)
             x = x + y
     else:           # layer i of the stacks reads and writes cache layer i
-        attend = (mla_mod.mla_decode if cfg.attention == "mla"
-                  else attn.attend_decode)
         layers = [(ffn_kind, _layer(blocks, j))
                   for ffn_kind, blocks, n, _ in _attn_stacks(params, cfg)
                   for j in range(n)]
         for i, (ffn_kind, p) in enumerate(layers):
-            y, _ = attend(p["attn"], norm(p["ln1"], x), _layer(cache, i),
-                          pos, cfg, ring=ring)
+            h = norm(p["ln1"], x)
+            if cfg.attention == "mla":
+                y, _ = mla_mod.mla_decode(p["attn"], h, _layer(cache, i),
+                                          pos, cfg, ring=ring)
+            else:
+                y, _ = attn.attend_decode(p["attn"], h, _layer(cache, i),
+                                          pos, cfg, ring=ring, mesh=mesh)
             x = x + y
             y, _ = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
             x = x + y

@@ -53,6 +53,21 @@ def categorical(logits, keys: Sequence[int]):
     return torch.argmax(logits + gumbel, dim=-1)
 
 
+def require_token_model(cfg, what: str):
+    """Refuse the audio family: its decoder attends to encoder frames,
+    while the reference's generation runs from prompt tokens alone (over
+    a cross cache it never fills), and its reference stage and actor
+    update read ``frames`` that no rollout row carries. So no engine
+    generates for audio; the model facade serves it (``forward``,
+    ``encdec.precompute_cross_kv``, ``decode_step``)."""
+    if cfg.arch_type == "audio":
+        raise ValueError(
+            f"{what}: {cfg.name} is an audio encoder-decoder; the "
+            "reference generates from prompt tokens alone, so there is no "
+            "audio generation engine (serve it through the model facade: "
+            "forward, encdec.precompute_cross_kv, decode_step)")
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -106,7 +121,9 @@ def generate(params, cfg, prompts: List[np.ndarray], rng_seed: int, *,
 
     bucket=True pads the batch dim to a power of two and the prompt length
     to a multiple of 8, as the reference does to reuse one compilation
-    (continuous-batching engines do the same bucketing)."""
+    (continuous-batching engines do the same bucketing). Refuses the
+    audio family (``require_token_model``)."""
+    require_token_model(cfg, "generate")
     dev = resolve_device(device)
     tok = ByteTokenizer()
     n_real = len(prompts)

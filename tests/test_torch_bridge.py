@@ -64,9 +64,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.core.recovery.snapshot', 'repro_torch.api.service',"
         " 'repro_torch.autodiff', 'repro_torch.launch.serve',"
         " 'repro_torch.core.planner.profiling', 'repro_torch.models.moe',"
-        " 'repro_torch.models.mla'):\n"
+        " 'repro_torch.models.mla', 'repro_torch.models.encdec',"
+        " 'repro_torch.distributed.flash_decode',"
+        " 'repro_torch.distributed.expert_parallel',"
+        " 'repro_torch.launch.mesh'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC),
@@ -81,6 +86,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.engines.continuous_batching import \
         ContinuousBatchingEngine
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import init_cache, init_params
     from repro_torch.rl import generate
 
@@ -93,6 +99,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: generate({}, cfg, [np.array([1, 5, 6])], 0),
         lambda: params_from_reference({"w": np.zeros(2, np.float32)}),
         lambda: serve.main(["--requests", "1"]),
+        lambda: make_debug_mesh(1, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

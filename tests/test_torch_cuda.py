@@ -74,7 +74,10 @@ FLASH_SHAPES = [
     (2, 63, 130, 4, 4, 160),
     # Grok-1's and InternVL2-26B's 48/8 heads at hd 128 (a group of 6): a
     # bucketed prefill, and a vision prefix of 1024 with a short prompt
-    (4, 256, 256, 48, 8, 128), (1, 1040, 1040, 48, 8, 128)]
+    (4, 256, 256, 48, 8, 128), (1, 1040, 1040, 48, 8, 128),
+    # Whisper-tiny's decoder: 6 query heads on 6 KV heads (a group of 1)
+    # at hd 64, 64 teacher-forced tokens
+    (4, 64, 64, 6, 6, 64)]
 # none, 1, one K/V tile at hd 256 (32), 64, one tile below hd 256 (128),
 # wider than any S
 FLASH_WINDOWS = [0, 1, 32, 64, 128, 4096]
@@ -265,11 +268,13 @@ def test_engine_on_card_matches_cpu_forward(cuda_device, arch, head_dim):
 # vocab: bf16 rows start at 518-byte offsets, off the 16-byte grid) and
 # 2053; Grok-1's 131,072 at its micro-batch of 16 x 79 rows, and
 # InternVL2-26B's odd 92,553 at 8 x 79 (rows off the 16-byte grid at full
-# width); MiniCPM3-4B's 73,448 at the trainer's 4 x 79 and DeepSeek-V2's
-# 102,400 at its micro-batch of 16 x 79.
+# width); MiniCPM3-4B's 73,448 at the trainer's 4 x 79, DeepSeek-V2's
+# 102,400 at its micro-batch of 16 x 79, and Whisper-tiny's odd 51,865 at
+# its micro-batch of 16 x 79.
 VOCAB_SHAPES = [(7, 259), (5, 2053), (316, 152064), (4096, 152064),
                 (316, 65024), (4096, 65024), (316, 256000), (1264, 131072),
-                (632, 92553), (7, 92553), (316, 73448), (1264, 102400)]
+                (632, 92553), (7, 92553), (316, 73448), (1264, 102400),
+                (1264, 51865)]
 # blocks a row in the vocab pass: 0 leaves the choice to the C entry
 VOCAB_SPLITS = [0, 1, 2, 4, 8]
 
@@ -1022,3 +1027,98 @@ def test_mla_decode_on_card_equals_naive_forward(cuda_device, arch):
             _assert_close_rel(got.cpu(), want[:, t].cpu(), 1e-4)
     _assert_close_rel(want.cpu(), cpu, 1e-4)
     assert (flash_attention.launches, decode_attention.launches) == n
+
+
+@pytest.mark.parametrize("cache", ["cross", "self"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_at_whisper_group_1(cuda_device, cache, dtype):
+    """Whisper-tiny's decode: 6 query heads on 6 KV heads (a group of 1)
+    at hd 64, over the 1500-key cross cache, every key valid (a ragged
+    tail for every tile), and over a 64-key self cache filled to ragged
+    prefixes (row 0: one key)."""
+    B, H, hd = 4, 6, 64
+    S = 1500 if cache == "cross" else 64
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    q = _randn(gen, (B, 1, H, hd), dtype, cuda_device)
+    k = _randn(gen, (B, S, H, hd), dtype, cuda_device)
+    v = _randn(gen, (B, S, H, hd), dtype, cuda_device)
+    fill = np.full(B, S) if cache == "cross" else np.array([1, 17, 40, 64])
+    valid = torch.from_numpy(np.arange(S)[None, :] < fill[:, None]).to(
+        cuda_device)
+    n = decode_attention.launches
+    out = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               decode_attention_ref(q, k, v, valid).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_whisper_forward_and_decode_on_card_match_cpu(cuda_device):
+    """A reduced Whisper on the card, fp32: the forward (flash for the
+    decoder's self-attention) against the CPU's, then the cross cache and
+    step-by-step decode (both caches through the decode kernel) against
+    that forward, teacher-forced."""
+    from repro_torch.models import decode_step, encdec, forward, init_cache
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("whisper_tiny").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size,
+                              compute_dtype="float32")
+    params = init_params(0, cfg, device=cuda_device)
+    B, T = 2, 12
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(3, 259, (B, T), generator=gen)
+    frames = torch.randn((B, cfg.encoder_frames, cfg.d_model),
+                         generator=gen)
+    n = flash_attention.launches, decode_attention.launches
+    with torch.no_grad():
+        want, _ = forward(params, cfg, {"tokens": toks.to(cuda_device),
+                                        "frames": frames.to(cuda_device)})
+        cpu, _ = forward(_to_cpu(params), cfg, {"tokens": toks,
+                                                "frames": frames})
+        cache = init_cache(cfg, B, T, dtype=torch.float32,
+                           device=cuda_device)
+        encdec.precompute_cross_kv(
+            params, cfg, encdec.encode(params, cfg, frames.to(cuda_device)),
+            cache)
+        for t in range(T):
+            got, cache = decode_step(params, cfg, cache,
+                                     toks[:, t].to(cuda_device),
+                                     torch.full((B,), t, device=cuda_device))
+            _assert_close_rel(got.cpu(), want[:, t].cpu(), 1e-4)
+    _assert_close_rel(want.cpu(), cpu, 1e-4)
+    assert flash_attention.launches == n[0] + cfg.num_layers
+    assert decode_attention.launches == n[1] + 2 * cfg.num_layers * T
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sharded_decode_on_a_one_rank_nccl_group(cuda_device, dtype):
+    """``sharded_decode_attention`` on the card's 1 x 1 mesh (a one-rank
+    NCCL group over a ``HashStore``) at the Qwen decode shape, against the
+    plain decode; the mesh route launches no ``decode_attention``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharded_decode_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    B, S, H, KV, hd = 4, 2080, 28, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(2080)
+    q = _randn(gen, (B, 1, H, hd), dtype, cuda_device)
+    k = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    v = _randn(gen, (B, S, KV, hd), dtype, cuda_device)
+    valid = torch.from_numpy(np.arange(S)[None, :] < np.array(
+        [1, 700, 1500, 2080])[:, None]).to(cuda_device)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        n = decode_attention.launches
+        out = sharded_decode_attention(q, k, v, valid, mesh=mesh)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == n
+    finally:
+        dist.destroy_process_group()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               decode_attention_ref(q, k, v, valid).float(),
+                               atol=tol, rtol=tol)

@@ -138,13 +138,6 @@ def test_init_params_matches_reference_tree_and_scales():
     assert torch.equal(again["embed"]["table"], params["embed"]["table"])
 
 
-@pytest.mark.parametrize("arch", ["whisper_tiny"])
-def test_unported_families_raise(arch):
-    from repro_torch.configs import get_config as port_get_config
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, item 12"):
-        init_params(0, port_get_config(arch).reduced(), device="cpu")
-
-
 def test_cross_attention_paths_match_reference():
     """attend_full over projected memory (cross_kv, no mask) and the
     read-only attend_decode over it (write=False), fp32."""

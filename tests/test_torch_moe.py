@@ -238,14 +238,6 @@ def test_device_limited_routing_matches_reference(top_k):
     assert moved > 1e-3 if top_k == 4 else moved == 0.0
 
 
-def test_shard_experts_waits_for_item_13():
-    _, ref_params, cfg, _ = _setup("grok_1_314b")
-    _, pt = _ffn_params(ref_params)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmoe.moe_ffn(pt, torch.zeros(1, 2, 256), cfg,
-                     shard_experts=lambda b: b)
-
-
 @pytest.mark.parametrize("name", CFGS)
 def test_init_params_matches_reference_tree(name):
     """Keys, shapes and dtypes against the reference's tree, the stacked
