@@ -215,8 +215,19 @@ which raises on failure:
     width (d 5120, 160 SwiGLU experts of 1536, top 6, 2 shared), 4 x 80
     fp32 tokens at capacity factor 8.0, against ``moe_ffn`` at a
     capacity that drops nothing (output scale over 0.5, as the
-    reference's check asks); then the group is torn down;
-39. a JSON line per kernel and, last, the device line.
+    reference's check asks);
+39. on that mesh, the launch steps of ``launch/steps.py`` on full-width
+    Qwen2.5-7B: prefill (28 layers, 1 x 2048), one serve step (28
+    layers, 4 rows over 2080 keys) and the GRPO train step (2 layers, 16
+    x 80, AdamW); each equal bit for bit to the model-facade call it
+    wraps, and again on DTensors placed by the sharding rules on the 1 x 1
+    mesh (the DTensor route to the same kernels); 28 flash, 28 decode,
+    one of each loss kernel a run; the dry run's account of the same
+    dims from meta structs (argument bytes equal to the card tensors',
+    peak beside ``max_memory_allocated``), and the dry-run launcher at
+    full size in a subprocess (256 fake ranks, no card); then the group
+    is torn down;
+40. a JSON line per kernel and, last, the device line.
 
 Phases 3, 4, 6b, 9, 10a (its profile and its trainer each), 10c, 10d, 12,
 16, 18, 23, 24, 27, 29, 31, 32's trainer, 33, 35 and 37 set the launch
@@ -228,7 +239,9 @@ The kernel line's launches are the main paths' sums: the attention
 kernels over phases 3, 6b, 10a, 10c, 27, 29 and 35 (flash also over 28,
 30, 36 and 37), the loss kernels over 9, 10a, 10c, 28, 30, 32
 (micro-batch and trainer), 34 and 36 (``grpo_logprob`` also over 10d),
-the scans over 16 and 23.
+the scans over 16 and 23; phase 39's steps (plain and on DTensors, not
+the facade's runs they are compared with) add to flash, decode and the
+two ``fused_rl_loss`` kernels.
 """
 from __future__ import annotations
 
@@ -317,6 +330,11 @@ WHISPER_VOCAB = 51_865     # odd: bf16 rows start off the 16-byte grid
 MESH_REQUESTS = 4          # phase-3 prompts served with ``mesh=``
 EP_TOKENS = (4, 80)        # tokens through one DeepSeek-V2 moe layer with
 EP_CAPACITY = 8.0          # ``ep_moe_ffn`` (its capacity factor)
+STEP_PREFILL = (1, 2048)   # the launch steps (phase 39) on Qwen2.5-7B:
+STEP_SERVE = (4, 2080)     # prefill rows x tokens and serve rows x cache
+STEP_TRAIN = (16, 80)      # keys at all 28 layers; train rows x tokens at
+                           # TRAIN_LAYERS, one AdamW step
+DRYRUN_TIMEOUT = 300       # seconds of the dry-run launcher's subprocess
 ATTENTION_KERNELS = ("flash_attention", "decode_attention")
 LOSS_KERNELS = ("grpo_logprob", "fused_rl_loss_fwd", "fused_rl_loss_bwd")
 SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
@@ -2929,6 +2947,266 @@ def phase_ep_moe(torch, smi, mesh):
     _release(torch)
 
 
+def _tree_equal(torch, a, b):
+    """Two trees' tensors (DTensors read as their local shards, a 1 x 1
+    mesh's whole tensors) equal bit for bit, leaf by leaf in key order."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        y = y.to_local() if isinstance(y, DTensor) else y
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def phase_launch_steps(torch, smi, mesh):
+    """The launch steps (``launch/steps.py``) on the card (phase 39), on
+    full-width Qwen2.5-7B: prefill (28 layers, STEP_PREFILL), serve (28
+    layers, one decode step over a cache of STEP_SERVE keys) and the
+    GRPO train step (TRAIN_LAYERS layers, STEP_TRAIN rows, AdamW). For
+    each: (b) its outputs equal the model-facade call it wraps, bit for
+    bit; (c) the same step on DTensors placed by the sharding rules on the
+    card's 1 x 1 mesh gives the same bits; (d) each run launches 28
+    ``flash_attention`` (prefill), 28 ``decode_attention`` (serve) or one
+    of each loss kernel (train) and nothing else; (e) the dry run's
+    account of the same dims on the 1 x 1 mesh, from meta structs: its
+    argument bytes equal the card tensors' exactly, and its peak is
+    printed beside ``max_memory_allocated`` of the plain step. (f) The
+    dry-run launcher at full size (``qwen2_5_7b decode_32k single``, 256
+    fake ranks) runs in a subprocess meanwhile, its wall printed. Returns
+    the launches of the steps' runs (plain and DTensor), the main path's;
+    the facade's runs are the comparison."""
+    t_phase = time.monotonic()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "qwen2_5_7b", "--shape", "decode_32k", "--mesh", "single"]
+    t_sub = time.monotonic()
+    sub = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True,
+                           env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                                "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        return _launch_steps(torch, smi, mesh, sub, cmd, t_phase, t_sub)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+
+
+def _launch_steps(torch, smi, mesh, sub, cmd, t_phase, t_sub):
+    """Phase 39's body (``phase_launch_steps``), the launcher's
+    subprocess ``sub`` running beside it."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params
+    from repro_torch.rl.grpo import GRPOConfig, grpo_train_step
+    from repro_torch.training import OptimizerConfig, TrainState
+    names = ("flash_attention", "decode_attention", "grpo_logprob",
+             "fused_rl_loss_fwd", "fused_rl_loss_bwd", "mamba_scan",
+             "rglru_scan")
+    counters = _counters(*names)
+    total = {n: 0 for n in names}
+    cfg = get_config("qwen2_5_7b")
+    rng = np.random.default_rng(SEED + 39)
+    dev = torch.device(mesh.device_type)
+
+    def counted(fn, want):
+        """Run ``fn`` with the counts at 0; its launches must be ``want``."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        ran = {n: c.launches for n, c in counters.items()}
+        if ran != {n: want.get(n, 0) for n in names}:
+            raise AssertionError(f"launches {ran}, expected {want}")
+        return out, wall, ran
+
+    def account(kind, step, args_meta, card_args):
+        """The dry run's account of ``step`` on meta structs placed by the
+        rules on ``mesh``; its argument bytes against the card's."""
+        _, acc = dryrun.trace(step, args_meta, mesh)
+        card = dryrun.local_bytes(card_args)
+        if acc["argument_bytes_per_rank"] != card:
+            raise AssertionError(f"{kind}: dry-run argument bytes "
+                                 f"{acc['argument_bytes_per_rank']} against "
+                                 f"the card's {card}")
+        return acc, card
+
+    def place(tree, specs):
+        return dryrun.place_tree(tree, specs, mesh)
+
+    lines = {}
+    # -- prefill and serve at 28 layers --------------------------------------
+    params = init_params(SEED, cfg, device=dev)
+    p_meta = init_params(SEED, cfg, device="meta")
+    p_meta = place(p_meta, sharding.tree_pspecs(p_meta, cfg, mesh))
+    B, S = STEP_PREFILL
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(3, cfg.vocab_size, (B, S))).to(dev)}
+    prefill = steps.make_prefill_step(cfg)
+    flash = {"flash_attention": cfg.num_layers}
+    with torch.no_grad():
+        (logits, aux, cache), _, _ = counted(
+            lambda: forward(params, cfg, batch, return_cache=True), flash)
+    torch.cuda.reset_peak_memory_stats()
+    (lp, cp), wall, ran = counted(lambda: prefill(params, batch), flash)
+    peak = torch.cuda.max_memory_allocated()
+    same = _tree_equal(torch, {"l": lp, "c": cp},
+                       {"l": logits[:, -1, :], "c": cache})
+    del logits, cache
+    pd = place(params, sharding.tree_pspecs(params, cfg, mesh))
+    bd = place(batch, sharding.batch_pspecs(batch, cfg, mesh))
+    with dryrun.sharded(pd, mesh):
+        (ld, cd), wall_d, ran_d = counted(lambda: prefill(pd, bd), flash)
+    same_d = _tree_equal(torch, {"l": ld, "c": cd}, {"l": lp, "c": cp})
+    del lp, cp, ld, cd
+    b_meta = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    acc, card = account("prefill", prefill, (p_meta, place(
+        b_meta, sharding.batch_pspecs(b_meta, cfg, mesh))), (params, batch))
+    lines["prefill"] = (wall, wall_d, ran, peak, acc, card, same, same_d)
+    for n in names:
+        total[n] += ran[n] + ran_d[n]
+
+    B, S = STEP_SERVE
+    cache = init_cache(cfg, B, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    token = torch.from_numpy(rng.integers(3, cfg.vocab_size, B)).to(dev)
+    pos = torch.tensor([S - 1, S // 2, 7, S // 3], device=dev)
+    serve = steps.make_serve_step(cfg)
+    dec = {"decode_attention": cfg.num_layers}
+    c0 = {k: v.clone() for k, v in cache.items()}
+    with torch.no_grad():
+        (logits, c0), _, _ = counted(
+            lambda: decode_step(params, cfg, c0, token, pos), dec)
+    c1 = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.reset_peak_memory_stats()
+    (l1, c1), wall, ran = counted(lambda: serve(params, c1, token, pos), dec)
+    peak = torch.cuda.max_memory_allocated()
+    same = _tree_equal(torch, {"l": l1, "c": c1}, {"l": logits, "c": c0})
+    c2 = {k: v.clone() for k, v in cache.items()}
+    tok_spec = sharding.P(sharding.dp_axes(mesh))
+    cd = place(c2, sharding.cache_pspecs(c2, cfg, mesh, batch=B))
+    td, posd = (dryrun.place(t, sharding.placements(tok_spec, mesh), mesh)
+                for t in (token, pos))
+    with dryrun.sharded(pd, mesh):
+        (ld, cd), wall_d, ran_d = counted(lambda: serve(pd, cd, td, posd),
+                                          dec)
+    same_d = _tree_equal(torch, {"l": ld, "c": cd}, {"l": l1, "c": c1})
+    del logits, c0, l1, c1, c2, ld, cd
+    c_meta = init_cache(cfg, B, S, device="meta")
+    tp = sharding.placements(tok_spec, mesh)
+    acc, card = account("serve", serve, (
+        p_meta, place(c_meta, sharding.cache_pspecs(c_meta, cfg, mesh,
+                                                    batch=B)),
+        dryrun.place(torch.empty_like(token, device="meta"), tp, mesh),
+        dryrun.place(torch.empty_like(pos, device="meta"), tp, mesh)),
+        (params, cache, token, pos))
+    lines["serve"] = (wall, wall_d, ran, peak, acc, card, same, same_d)
+    for n in names:
+        total[n] += ran[n] + ran_d[n]
+    del params, pd, cache, p_meta
+    _release(torch)
+
+    # -- the GRPO train step at TRAIN_LAYERS layers -----------------------------
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    params = init_params(SEED, cfg2, device=dev)
+    B, S = STEP_TRAIN
+    mask = np.zeros((B, S), np.float32)
+    mask[:, 16:] = 1.0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "tokens": rng.integers(3, cfg.vocab_size, (B, S)),
+        "response_mask": mask,
+        "old_logprob": (-12.0 + 0.3 * rng.standard_normal((B, S)))
+        .astype(np.float32),
+        "advantage": rng.standard_normal(B).astype(np.float32)}.items()}
+    loss = {"fused_rl_loss_fwd": 1, "fused_rl_loss_bwd": 1}
+    (ref, m_ref), _, _ = counted(lambda: grpo_train_step(
+        TrainState.create(params), cfg2, GRPOConfig(), OptimizerConfig(),
+        batch), loss)
+    ref = ref.params
+    train = steps.make_train_step(cfg2)
+    state = TrainState.create(params)
+    torch.cuda.reset_peak_memory_stats()
+    (new, m), wall, ran = counted(lambda: train(state, batch), loss)
+    peak = torch.cuda.max_memory_allocated()
+    same = _tree_equal(torch, {"p": new.params, "m": m},
+                       {"p": ref, "m": m_ref})
+    del new, m, state
+    _release(torch)
+    state = TrainState.create(params)
+    sd = place(state, sharding.state_pspecs(state, cfg2, mesh))
+    bd = place(batch, sharding.batch_pspecs(batch, cfg2, mesh))
+    with dryrun.sharded(sd.params, mesh):
+        (new, m), wall_d, ran_d = counted(lambda: train(sd, bd), loss)
+    same_d = _tree_equal(torch, {"p": new.params, "m": m},
+                         {"p": ref, "m": m_ref})
+    del new, m, sd, ref
+    _release(torch)
+    st_meta = TrainState.create(init_params(SEED, cfg2, device="meta"))
+    b_meta = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    acc, card = account("train", train, (
+        place(st_meta, sharding.state_pspecs(st_meta, cfg2, mesh)),
+        place(b_meta, sharding.batch_pspecs(b_meta, cfg2, mesh))),
+        (state, batch))
+    lines["train"] = (wall, wall_d, ran, peak, acc, card, same, same_d)
+    for n in names:
+        total[n] += ran[n] + ran_d[n]
+    del params, state, batch
+    _release(torch)
+
+    out, err = sub.communicate(timeout=DRYRUN_TIMEOUT)
+    sub_wall = time.monotonic() - t_sub
+    rec = json.loads(out) if sub.returncode == 0 else {}
+    for kind, (wall, wall_d, ran, peak, acc, card, same, same_d) in \
+            lines.items():
+        print(json.dumps({
+            "phase": "launch_steps", "step": kind, "card": smi,
+            "layers": cfg2.num_layers if kind == "train" else cfg.num_layers,
+            "rows_tokens": {"prefill": STEP_PREFILL, "serve": STEP_SERVE,
+                            "train": STEP_TRAIN}[kind],
+            "wall_s": wall, "dtensor_wall_s": wall_d,
+            "launches": {n: k for n, k in ran.items() if k},
+            "facade_bits": same, "dtensor_bits": same_d,
+            "argument_bytes_per_rank": acc["argument_bytes_per_rank"],
+            "card_argument_bytes": card,
+            "peak_bytes_per_rank": acc["peak_bytes_per_rank"],
+            "max_memory_allocated": peak,
+            "peak_ratio": acc["peak_bytes_per_rank"] / peak,
+            "dryrun_trace_s": acc["trace_s"],
+            "collective_ops": acc["collective_ops"]}))
+    print(json.dumps({
+        "phase": "dryrun_launcher", "card": smi, "command": cmd[1:],
+        "returncode": sub.returncode, "wall_s": sub_wall,
+        "status": rec.get("status"), "trace_s": rec.get("trace_s"),
+        "collective_bytes_total": rec.get("collective_bytes", {})
+        .get("total"),
+        "argument_bytes_per_rank": rec.get("argument_bytes_per_rank"),
+        "peak_bytes_per_rank": rec.get("peak_bytes_per_rank"),
+        "phase_s": time.monotonic() - t_phase}))
+    bad = [k for k, v in lines.items() if not (v[6] and v[7])]
+    if bad:
+        raise AssertionError(f"launch steps {bad}: not bit-identical "
+                             "(facade, DTensor): "
+                             f"{[(lines[k][6], lines[k][7]) for k in bad]}")
+    if sub.returncode != 0 or rec.get("status") != "ok":
+        raise AssertionError(f"dry-run launcher: rc {sub.returncode}, "
+                             f"{err[-2000:]}")
+    return total
+
+
 def main():
     torch = _import_port()
 
@@ -3211,10 +3489,13 @@ def main():
             qwen_line)["flash_attention"]
         # -- 38. expert parallelism at one DeepSeek-V2 moe layer -------------
         phase_ep_moe(torch, smi, mesh)
+        # -- 39. the launch steps, plain and on DTensors, and the dry run ----
+        for name, n in phase_launch_steps(torch, smi, mesh).items():
+            launches[name] += n
     finally:
         dist.destroy_process_group()
 
-    # -- 39. output -----------------------------------------------------------
+    # -- 40. output -----------------------------------------------------------
     sources = {
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:72",

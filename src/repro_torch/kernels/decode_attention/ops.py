@@ -3,8 +3,9 @@ tensors, the plain version for CPU tensors, nothing else."""
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
@@ -35,6 +36,8 @@ def decode_attention(q, k_cache, v_cache, valid):
     Returns (B,1,H,hd) in the dtype of q. Masks ragged S in place; there
     is no fallback for shapes that do not tile."""
     args = (q, k_cache, v_cache, valid)
+    if isinstance(k_cache, DTensor) or k_cache.is_meta:
+        return _routes.decode_attention(decode_attention, *args)
     if _build.on_cpu(*args):
         return decode_attention_ref(*args)
     _build.require_no_grad("decode_attention", *args)

@@ -7,8 +7,9 @@ under grad mode the wrapper raises instead of returning an output that
 would silently drop the gradient of q, k and v. The training forward takes
 the plain attention route (``forward(..., use_kernels=False)``)."""
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
@@ -16,6 +17,9 @@ def flash_attention(q, k, v, *, window=0):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KVH,hd), Sq <= Sk — causal, optional
     sliding window. Returns (B,Sq,H,hd) in the dtype of q. Masks ragged
     tails in place; there is no fallback for shapes that do not tile."""
+    if isinstance(q, DTensor) or q.is_meta:
+        return _routes.flash_attention(flash_attention, q, k, v,
+                                       window=window)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, window=window)
     _build.require_no_grad("flash_attention", q, k, v)

@@ -21,8 +21,9 @@ is kept. Both passes are kernels for CUDA tensors and their plain versions
 (``ref.py``) for CPU tensors; a failed build or launch raises.
 """
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.fused_rl_loss.ref import (fused_rl_loss_bwd_ref,
                                                    fused_rl_loss_fwd_ref)
 from repro_torch.kernels.grpo_logprob.ops import rows_input
@@ -51,6 +52,9 @@ def fused_rl_loss_fwd(logits, targets, old_logprob, ref_logprob, advantage,
     converted or copied that the main path's inputs (int64 targets,
     contiguous float32 vectors) do not need."""
     args = (logits, targets, old_logprob, ref_logprob, advantage)
+    if isinstance(logits, DTensor) or logits.is_meta:
+        return _routes.fused_rl_loss_fwd(fused_rl_loss_fwd, *args,
+                                         clip_eps=clip_eps, nsplit=nsplit)
     if _build.on_cpu(*args):
         return fused_rl_loss_fwd_ref(*args, clip_eps=clip_eps)
     _build.require_no_grad("fused_rl_loss_fwd", logits, old_logprob,
@@ -78,6 +82,8 @@ def fused_rl_loss_fwd(logits, targets, old_logprob, ref_logprob, advantage,
 def fused_rl_loss_bwd(logits, targets, lse, xbar, dlp, g_ent):
     """dx (N, V) in the logits' dtype from the (N,) row statistics."""
     args = (logits, targets, lse, xbar, dlp, g_ent)
+    if isinstance(logits, DTensor) or logits.is_meta:
+        return _routes.fused_rl_loss_bwd(fused_rl_loss_bwd, *args)
     if _build.on_cpu(*args):
         return fused_rl_loss_bwd_ref(*args)
     _check("fused_rl_loss_bwd", *args)

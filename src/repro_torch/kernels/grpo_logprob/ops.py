@@ -8,8 +8,9 @@ no-grad) cost a few attribute reads each; nothing is converted or copied
 that the main path's inputs (int64 targets, contiguous logits) do not
 need, and the two outputs are rows of one buffer."""
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.grpo_logprob.ref import grpo_logprob_ref
 
 MAX_SPLITS = 8             # blocks a row at most: one cluster
@@ -46,6 +47,9 @@ def grpo_logprob(logits, targets, *, nsplit=0):
     (logprob (N,), entropy (N,)), float32. Any V: the kernel masks the
     ragged tail in place. ``nsplit`` forces the blocks a row (1, 2, 4, 8);
     0 leaves the choice to the kernel's entry (``nsplit_for``)."""
+    if isinstance(logits, DTensor) or logits.is_meta:
+        return _routes.grpo_logprob(grpo_logprob, logits, targets,
+                                    nsplit=nsplit)
     if _build.on_cpu(logits, targets):
         return grpo_logprob_ref(logits, targets)
     _build.require_no_grad("grpo_logprob", logits)

@@ -11,8 +11,9 @@ to it uncopied: x, dt and A contiguous; B and C as they come, through
 their batch and time strides, since the model hands over ``torch.split``
 views of the x_proj output (a row stride of dt_rank + 2N)."""
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 STATE_SIZES = (8, 16)
@@ -46,6 +47,8 @@ def mamba_scan(x, dt, a, b, c, *, path=0):
     S and D: the kernel masks ragged tails in place; N in (8, 16).
     ``path`` forces the entry's path (1 short, 2 long); 0 leaves the
     choice to the entry (``path_for``)."""
+    if isinstance(x, DTensor) or x.is_meta:
+        return _routes.mamba_scan(mamba_scan, x, dt, a, b, c, path=path)
     if _build.on_cpu(x, dt, a, b, c):
         return mamba_scan_ref(x, dt, a, b, c)
     _build.require_no_grad("mamba_scan", x, dt, a, b, c)

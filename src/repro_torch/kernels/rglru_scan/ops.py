@@ -10,8 +10,9 @@ attribute reads each, and fp32 inputs that the kernel takes as they are go
 to it uncopied. Any B, S and W: the kernel masks ragged tails in place,
 where the reference's wrapper falls back to its oracle."""
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _routes
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 SHORT_MAX = 128            # longest S of the entry's short path
@@ -28,6 +29,8 @@ def rglru_scan(a, b, *, path=0):
     """a, b: (B, S, W) -> h (B, S, W) float32, h_t = a_t h_{t-1} + b_t.
     ``path`` forces the entry's path (1 short, 2 long); 0 leaves the
     choice to the entry (``path_for``)."""
+    if isinstance(a, DTensor) or a.is_meta:
+        return _routes.rglru_scan(rglru_scan, a, b, path=path)
     if _build.on_cpu(a, b):
         return rglru_scan_ref(a, b)
     _build.require_no_grad("rglru_scan", a, b)

@@ -14,9 +14,15 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.device import resolve_device
 
 
+def production_shape(*, multi_pod: bool = False):
+    """(sizes, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod=multi_pod)
     return init_device_mesh(resolve_device(None).type, shape,
                             mesh_dim_names=axes)
 

@@ -19,7 +19,9 @@ reference's plain path (``rl/grpo.py:54`` calls ``forward`` without
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import _routes
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rotary, dense, init_dense
@@ -132,6 +134,16 @@ def init_kv_cache(cfg, batch, length, dtype=torch.bfloat16, layers=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def write_slots(cache, slot, new):
+    """``cache[b, slot[b]] = new[b]`` for every row ``b`` of a (B, S, ...)
+    cache, in place. A DTensor cache is written on each rank's shard
+    (``kernels/_routes.write_slots``): DTensor cannot write an indexed
+    dim in place where it is split, and the batch dim is split."""
+    if isinstance(cache, DTensor):
+        return _routes.write_slots(cache, slot, new)
+    cache[torch.arange(cache.shape[0], device=cache.device), slot] = new
+
+
 def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
                   mesh=None):
     """One-token decode.
@@ -166,9 +178,8 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
         # torch raises on an out-of-range index where JAX clamps: clamp
         # explicitly, as the reference does.
         slot = pos % S if ring else torch.clamp(pos, max=S - 1)
-        bidx = torch.arange(B, device=x.device)
-        k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+        write_slots(k_cache, slot, k_new[:, 0].to(k_cache.dtype))
+        write_slots(v_cache, slot, v_new[:, 0].to(v_cache.dtype))
 
         kpos = torch.arange(S, device=x.device)[None, :]
         n_filled = torch.clamp(pos + 1, max=S)[:, None]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import NEG_INF, causal_mask
+from repro_torch.models.attention import NEG_INF, causal_mask, write_slots
 from repro_torch.models.layers import apply_rotary, dense, init_dense
 
 
@@ -129,9 +129,8 @@ def mla_decode(p, x, layer_cache, pos, cfg, *, ring=False):
     # torch raises on an out-of-range index where JAX clamps: clamp
     # explicitly, as the reference does
     slot = pos % S if ring else torch.clamp(pos, max=S - 1)
-    bidx = torch.arange(B, device=x.device)
-    ck[bidx, slot] = c_new[:, 0].to(ck.dtype)
-    kr[bidx, slot] = kr_new[:, 0].to(kr.dtype)
+    write_slots(ck, slot, c_new[:, 0].to(ck.dtype))
+    write_slots(kr, slot, kr_new[:, 0].to(kr.dtype))
     ckc = ck.to(cd)
 
     # absorb: q_lat[h] = q_nope[h] @ W_uk[h]^T, a query in latent space

@@ -22,10 +22,22 @@ from repro_torch.models import encdec, transformer
 from repro_torch.tree import tree_leaves
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``. The init helpers
+    make each tensor on ``gen.device`` and draw into it with ``gen``, and a
+    draw into a meta tensor takes a CPU generator and makes no values: a
+    tree of meta tensors of the params' shapes and dtypes, nothing
+    allocated."""
+    device = torch.device("meta")
+
+
 def init_params(seed: int, cfg, *, device=None):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (``cuda`` unless the caller passes another)."""
-    gen = torch.Generator(device=resolve_device(device))
+    ``device`` (``cuda`` unless the caller passes another); on ``meta``,
+    their shapes and dtypes alone (``launch/specs.py``)."""
+    dev = resolve_device(device)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(
+        device=dev)
     gen.manual_seed(int(seed))
     if cfg.arch_type == "audio":
         return encdec.init_encdec(gen, cfg)

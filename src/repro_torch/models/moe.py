@@ -72,9 +72,11 @@ def _top_k(x, k):
 
 def _picks(expert_ids, E):
     """Picks per expert, (E,) int64: integer adds, exact in any order.
-    (``torch.bincount`` on CUDA reads the largest id back to the host.)"""
+    (``torch.bincount`` on CUDA reads the largest id back to the host.)
+    Out of place: DTensor cannot add DTensor ids into a plain tensor in
+    place."""
     ids = expert_ids.reshape(-1)
-    return torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add(
         0, ids, torch.ones_like(ids))
 
 

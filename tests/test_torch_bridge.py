@@ -67,7 +67,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.models.mla', 'repro_torch.models.encdec',"
         " 'repro_torch.distributed.flash_decode',"
         " 'repro_torch.distributed.expert_parallel',"
-        " 'repro_torch.launch.mesh'):\n"
+        " 'repro_torch.launch.mesh', 'repro_torch.distributed.sharding',"
+        " 'repro_torch.launch.specs', 'repro_torch.launch.steps',"
+        " 'repro_torch.launch.dryrun', 'repro_torch.launch.sweep',"
+        " 'repro_torch.kernels._routes'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "import torch.distributed as dist\n"

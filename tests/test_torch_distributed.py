@@ -4,7 +4,9 @@ last shard holds no valid key), ``ep_moe_ffn`` at capacity factors 8.0,
 2.0 and 1.0 (where picks drop), ``decode_step(mesh=)`` on reduced dense
 and moe configs against the reference's ``decode_step`` without a mesh,
 the continuous engine with ``mesh=`` against itself without one, and
-``moe_ffn(shard_experts=...)``.
+``moe_ffn(shard_experts=...)``. Then ``launch/steps.py``'s train and
+serve steps on DTensors placed by the sharding rules, on 4 gloo ranks
+(2 x 2), against the same steps on plain tensors.
 
 The reference is one SPMD program over a mesh of devices; the port runs a
 process per rank. So the port runs as 8 gloo ranks (a 2 data x 4 model
@@ -44,6 +46,9 @@ MODEL_TOL = 1e-4
 DECODE_SHAPE = (2, 512, 4, 2, 64)      # B, S, H, KVH, hd
 DECODE_FILL = (300, 512)      # row 0: no valid key in the last 128
 CACHE_LEN, DECODE_STEPS = 16, 10
+STEPS_MESH = (2, 2)           # the steps on DTensors: 4 gloo ranks
+STEPS_ROWS, STEPS_LEN = 4, 12  # the train batch
+STEPS_TOL = 1e-5              # relative, fp32
 
 
 class EPCase(NamedTuple):
@@ -73,6 +78,14 @@ def _decode_cfg(get_config, name):
         get_config(arch).reduced(), num_layers=2, d_model=64, d_ff=128,
         num_heads=4, num_kv_heads=2, head_dim=32, vocab_size=259,
         compute_dtype="float32")
+
+
+def _steps_cfg(get_config, name):
+    """A reduced config of ``name``'s family in fp32 with the byte vocab,
+    for the three steps on DTensors."""
+    arch = {"dense": "qwen2_5_7b", "moe": "grok_1_314b"}[name]
+    return dataclasses.replace(get_config(arch).reduced(), vocab_size=259,
+                               compute_dtype="float32")
 
 
 # -- nested dicts through flat .npz keys --------------------------------------
@@ -234,7 +247,86 @@ def _engine_job(mesh, inp):
     return out
 
 
-JOBS = {"mesh": _mesh_job, "engine": _engine_job}
+def _full(tree, prefix):
+    """Flat numpy arrays of a tree of DTensors (whole) or tensors."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_full(v, f"{prefix}{k}/"))
+        elif isinstance(v, torch.Tensor):
+            v = v.full_tensor() if isinstance(v, DTensor) else v
+            out[f"{prefix}{k}"] = v.detach().float().numpy()
+    return out
+
+
+def _steps_job(mesh, inp):
+    """The train and serve steps of ``launch/steps.py`` on plain tensors
+    and on DTensors placed by the sharding rules (``to_named``), for a
+    reduced dense and moe model in fp32: the new params, the first
+    moments and the metrics; the serve step's logits and cache at batch
+    2 (rows split over "data") and at batch 1 (keys split over "data",
+    combined by ``partial_decode_combine``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.training import TrainState
+    out = {}
+    for name in ("dense", "moe"):
+        cfg = _steps_cfg(get_config, name)
+        params = init_params(0, cfg, device="cpu")
+        batch = {k: torch.from_numpy(inp[f"steps/{k}"])
+                 for k in ("tokens", "response_mask", "old_logprob",
+                           "advantage")}
+        train = steps.make_train_step(cfg)
+        for tag in ("plain", "dtensor"):
+            state = TrainState.create(params)
+            b = batch
+            if tag == "dtensor":
+                state = dryrun.place_tree(
+                    state, sharding.state_pspecs(state, cfg, mesh), mesh)
+                b = dryrun.place_tree(
+                    batch, sharding.batch_pspecs(batch, cfg, mesh), mesh)
+                with dryrun.sharded(state.params, mesh):
+                    new, metrics = train(state, b)
+            else:
+                new, metrics = train(state, b)
+            out.update(_full(new.params, f"{name}/train/{tag}/p/"))
+            out.update(_full(new.opt_state["m"], f"{name}/train/{tag}/m/"))
+            out.update(_full(metrics, f"{name}/train/{tag}/metrics/"))
+        serve = steps.make_serve_step(cfg)
+        for B in (2, 1):
+            cache = init_cache(cfg, B, CACHE_LEN, dtype=torch.float32,
+                               device="cpu")
+            toks = torch.from_numpy(inp["steps/tokens"][:B])
+            for t in range(5):      # fill 5 positions, plain
+                serve(params, cache, toks[:, t], torch.full((B,), t))
+            tok, pos = toks[:, 5], torch.full((B,), 5)
+            for tag in ("plain", "dtensor"):
+                c = {k: v.clone() for k, v in cache.items()}
+                key = f"{name}/serve{B}/{tag}/"
+                if tag == "dtensor":
+                    spec = sharding.P(*([sharding.dp_axes(mesh)] if B > 1
+                                        else [None]))
+                    pl = sharding.placements(spec, mesh)
+                    p = dryrun.place_tree(
+                        params, sharding.tree_pspecs(params, cfg, mesh),
+                        mesh)
+                    c = dryrun.place_tree(c, sharding.cache_pspecs(
+                        c, cfg, mesh, batch=B), mesh)
+                    out[key + "cache_placements"] = np.asarray(
+                        [str(x) for x in c["k"].placements])
+                    with dryrun.sharded(p, mesh):
+                        logits, c = serve(p, c, dryrun.place(tok, pl, mesh),
+                                          dryrun.place(pos, pl, mesh))
+                else:
+                    logits, c = serve(params, c, tok, pos)
+                out.update(_full({"logits": logits, **c}, key))
+    return out
+
+
+JOBS = {"mesh": _mesh_job, "engine": _engine_job, "steps": _steps_job}
 
 
 # -- what the reference's JAX subprocess runs ------------------------------------
@@ -364,16 +456,28 @@ def runs(tmp_path_factory):
     prompts = [rng.integers(3, 259, n) for n in (3, 5, 4, 9, 6)]
     engine_inp = {"n": np.asarray(len(prompts)),
                   **{f"prompt{i}": p for i, p in enumerate(prompts)}}
+    mask = np.zeros((STEPS_ROWS, STEPS_LEN), np.float32)
+    mask[:, 4:] = 1.0
+    steps_inp = {
+        "steps/tokens": rng.integers(3, 259, (STEPS_ROWS, STEPS_LEN)),
+        "steps/response_mask": mask,
+        "steps/old_logprob": (-5.5 + 0.3 * rng.standard_normal(
+            (STEPS_ROWS, STEPS_LEN))).astype(np.float32),
+        "steps/advantage": rng.standard_normal(STEPS_ROWS).astype(
+            np.float32)}
 
-    work = {k: tmp_path_factory.mktemp(k) for k in ("mesh", "engine", "ref")}
+    work = {k: tmp_path_factory.mktemp(k)
+            for k in ("mesh", "engine", "steps", "ref")}
     np.savez(work["mesh"] / "inputs.npz", **inp)
     np.savez(work["ref"] / "inputs.npz", **inp)
     np.savez(work["engine"] / "inputs.npz", **engine_inp)
+    np.savez(work["steps"] / "inputs.npz", **steps_inp)
     procs = [_start(f"t._reference_main({str(work['ref'])!r})", work["ref"],
                     work["ref"] / "ref.log", JAX_PLATFORMS="cpu",
                     XLA_FLAGS="--xla_force_host_platform_device_count=8")]
     logs = [work["ref"] / "ref.log"]
-    for key, shape in (("mesh", MESH), ("engine", ENGINE_MESH)):
+    for key, shape in (("mesh", MESH), ("engine", ENGINE_MESH),
+                       ("steps", STEPS_MESH)):
         procs += _ranks(work[key], shape, key)
         logs += [work[key] / f"rank{r}.log"
                  for r in range(shape[0] * shape[1])]
@@ -384,6 +488,7 @@ def runs(tmp_path_factory):
     return {"inputs": inp, "engine_inputs": engine_inp,
             "mesh": ranks("mesh", MESH[0] * MESH[1]),
             "engine": ranks("engine", ENGINE_MESH[0] * ENGINE_MESH[1]),
+            "steps": ranks("steps", STEPS_MESH[0] * STEPS_MESH[1]),
             "reference": {**_load(work["ref"] / "reference.npz"), **want}}
 
 
@@ -678,3 +783,56 @@ def test_moe_ffn_shard_experts_matches_reference():
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=2e-5,
                                rtol=2e-5)
     np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+def _tree_rel(res, got, want):
+    keys = sorted(k[len(want):] for k in res if k.startswith(want))
+    assert keys and keys == sorted(k[len(got):] for k in res
+                                   if k.startswith(got))
+    num = sum(np.sum((res[got + k].astype(np.float64)
+                      - res[want + k]) ** 2) for k in keys)
+    den = sum(np.sum(res[want + k].astype(np.float64) ** 2) for k in keys)
+    return np.sqrt(num / den)
+
+
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_train_step_on_dtensors_matches_the_plain_step(runs, name):
+    """``make_train_step`` on DTensors placed by the rules over 2 x 2 gloo
+    ranks (FSDP over "data", tensor and expert parallel over "model")
+    against the same step on plain tensors, fp32: the metrics, the new
+    params and the first moments (the clipped gradients, scaled) each
+    within 1e-5 relative; the same on every rank."""
+    for key in runs["steps"][0]:
+        if key.startswith(f"{name}/train/dtensor/"):
+            _same_on_every_rank(runs["steps"], key)
+    res = runs["steps"][0]
+    pre = f"{name}/train/"
+    for k in [k for k in res if k.startswith(pre + "plain/metrics/")]:
+        m = k.rsplit("/", 1)[1]
+        np.testing.assert_allclose(res[pre + "dtensor/metrics/" + m], res[k],
+                                   rtol=STEPS_TOL, atol=1e-7, err_msg=m)
+    for part in ("p", "m"):
+        assert _tree_rel(res, pre + f"dtensor/{part}/",
+                         pre + f"plain/{part}/") <= STEPS_TOL, part
+
+
+@pytest.mark.parametrize("B", [2, 1])
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_serve_step_on_dtensors_matches_the_plain_step(runs, name, B):
+    """``make_serve_step`` on DTensors against plain tensors, fp32: the
+    logits and the cache written in place within 1e-5 relative. At batch
+    2 the cache's rows split over "data"; at batch 1 its keys do, and the
+    decode attention combines the shards' partial softmaxes."""
+    res = runs["steps"][0]
+    pre = f"{name}/serve{B}/"
+    # the stacked cache (L, B, S, KVH, hd): rows or keys over "data"
+    split = "S(1)" if B > 1 else "S(2)"
+    assert res[pre + "dtensor/cache_placements"][0] == split
+    for key in ("logits", "k", "v"):
+        got = _same_on_every_rank(runs["steps"], pre + "dtensor/" + key)
+        assert _rel(got, res[pre + "plain/" + key]) <= STEPS_TOL, key
