@@ -235,6 +235,7 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics: Dict[str, _Metric] = {}
         self._lock = threading.Lock()
+        self.epoch = 0                 # bumped by clear()
 
     def _get_or_create(self, cls, name: str, help: str, **kw) -> _Metric:
         with self._lock:
@@ -277,6 +278,7 @@ class MetricsRegistry:
     def clear(self) -> None:
         with self._lock:
             self._metrics.clear()
+            self.epoch += 1
 
 
 # -- process-global default -------------------------------------------------
@@ -298,6 +300,27 @@ def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
         prev = _default_registry
         _default_registry = registry
         return prev
+
+
+class DefaultCounter:
+    """One series of a counter of the process default registry, bound
+    again whenever that registry is replaced or cleared: for code with no
+    construction step to bind at (the model's plain functions). An
+    ``inc`` costs two attribute checks beside the counter's own lock."""
+
+    def __init__(self, name: str, help: str = "", **labels):
+        self._name, self._help, self._labels = name, help, labels
+        self._reg: Optional[MetricsRegistry] = None
+        self._epoch = -1
+        self._bound: Optional[_BoundCounter] = None
+
+    def inc(self, value: float = 1.0) -> None:
+        reg = _default_registry
+        if reg is not self._reg or reg.epoch != self._epoch:
+            self._bound = reg.counter(self._name, self._help).labels(
+                **self._labels)
+            self._reg, self._epoch = reg, reg.epoch
+        self._bound.inc(value)
 
 
 @contextmanager

@@ -78,12 +78,6 @@ class TransferQueueController:
         self.metrics = m
         # pre-bound series (labels sorted once) — cheap enough to update
         # inside the scheduling lock
-        self._m_requests = m.counter(
-            "tq_requests_total", "scheduling requests per task").labels(
-            task=task)
-        self._m_rows_ready = m.counter(
-            "tq_rows_ready_total",
-            "rows that became schedulable per task").labels(task=task)
         self._m_rows_consumed = m.counter(
             "tq_rows_consumed_total", "rows handed to consumers per task"
         ).labels(task=task)
@@ -113,7 +107,6 @@ class TransferQueueController:
             if self._n_ready_cols[idx] == len(self.columns) \
                     and not self._consumed[idx]:
                 self._avail[idx] = None
-                self._m_rows_ready.inc()
                 self._m_depth.set(len(self._avail))
 
     def notify(self, idx: int, column: str) -> None:
@@ -159,7 +152,6 @@ class TransferQueueController:
         deadline = None if timeout is None else t0 + timeout
         with self._cv:
             self.n_requests += 1
-            self._m_requests.inc()
             while True:
                 n_avail = len(self._avail)
                 if n_avail >= batch_size or \

@@ -7,18 +7,30 @@ Stage-graph workers record spans under their stage name (``generate``,
 visible. Any kind that is not bookkeeping (``wait`` / ``weight_sync``)
 counts as busy time — custom stage names are busy by default.
 
+Spans are stamped on the device trace's clock (``tracing.clock_ns``,
+Unix-epoch nanoseconds, what ``torch.profiler``'s events carry) and
+record their thread, their parent span and a trace id
+(``core/obs/tracing.py``); the analysis below works on times relative to
+the log's start. The same class is the port's one tracer: the engines,
+weight sync and model record fine-grained spans into the process default
+(``tracing.get_event_log()``) while tracing is on.
+
 ``to_chrome_trace()`` emits the same spans as ``traceEvents`` JSON
-(complete ``"X"`` events keyed by instance, meta as ``args``) loadable
-in Perfetto / ``chrome://tracing``; ``benchmarks/gantt.py --trace``
+(complete ``"X"`` events on their thread's track at absolute times, meta
+and span ids as ``args``) loadable in Perfetto / ``chrome://tracing``;
+with ``into=`` it adds them to a ``torch.profiler`` export, where they
+line up with its host and device events. ``benchmarks/gantt.py --trace``
 writes it next to the ``BENCH_*.json`` trajectory.
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.core.obs.tracing import clock_ns, pop, push
 
 IDLE_KINDS = ("wait", "weight_sync")
 
@@ -63,9 +75,15 @@ def _json_safe(v):
 class Event:
     instance: str   # e.g. "rollout-0", "train-0"
     kind: str       # "generate" | "update" | "wait" | "weight_sync" | ...
-    start: float
+    start: float    # seconds since the log's start
     end: float
     meta: dict = field(default_factory=dict)
+    start_ns: int = 0   # on the shared clock (tracing.clock_ns)
+    end_ns: int = 0
+    thread: int = 0     # native id of the thread that ran it
+    span_id: int = 0
+    parent: int = 0     # the parent span's id; 0 for a root
+    trace_id: int = 0
 
     @property
     def duration(self) -> float:
@@ -77,13 +95,24 @@ class EventLog:
         self._events: List[Event] = []
         self._lock = threading.Lock()
         self._kind_order: Dict[str, None] = {}   # insertion-ordered set
-        self.t0 = time.monotonic()
+        self.t0_ns = clock_ns()
 
-    def record(self, instance: str, kind: str, start: float, end: float,
+    def record(self, instance: str, kind: str, start_ns: int, end_ns: int,
                **meta) -> None:
+        """A closed span stamped by the caller on the shared clock
+        (``tracing.clock_ns``); the innermost span open on this thread
+        is its parent."""
+        ids = push()
+        pop()
+        self._add(instance, kind, start_ns, end_ns, meta, ids)
+
+    def _add(self, instance, kind, start_ns, end_ns, meta, ids) -> None:
+        sid, parent, trace = ids
+        ev = Event(instance, kind, (start_ns - self.t0_ns) / 1e9,
+                   (end_ns - self.t0_ns) / 1e9, meta, start_ns, end_ns,
+                   threading.get_native_id(), sid, parent, trace)
         with self._lock:
-            self._events.append(Event(instance, kind, start - self.t0,
-                                      end - self.t0, meta))
+            self._events.append(ev)
 
     def register_kinds(self, kinds: Sequence[str]) -> None:
         """Declare stage kinds up front (StageRunner registers the graph's
@@ -94,19 +123,32 @@ class EventLog:
                 self._kind_order.setdefault(k, None)
 
     class _Span:
-        def __init__(self, log, instance, kind, meta):
+        __slots__ = ("log", "instance", "kind", "meta", "parent", "ids",
+                     "start")
+
+        def __init__(self, log, instance, kind, meta, parent=None):
             self.log, self.instance, self.kind, self.meta = log, instance, kind, meta
+            self.parent = parent
 
         def __enter__(self):
-            self.start = time.monotonic()
+            self.ids = push(self.parent)
+            self.start = clock_ns()
             return self
 
-        def __exit__(self, *exc):
-            self.log.record(self.instance, self.kind, self.start,
-                            time.monotonic(), **self.meta)
+        def set(self, key, value) -> None:
+            self.meta[key] = value
 
-    def span(self, instance: str, kind: str, **meta) -> "_Span":
-        return self._Span(self, instance, kind, meta)
+        def __exit__(self, *exc):
+            end = clock_ns()
+            pop()
+            self.log._add(self.instance, self.kind, self.start, end,
+                          self.meta, self.ids)
+
+    def span(self, instance: str, kind: str, *, parent=None,
+             **meta) -> "_Span":
+        """A span on the calling thread; ``parent`` is a
+        ``tracing.current()`` taken on another thread."""
+        return self._Span(self, instance, kind, meta, parent)
 
     # -- analysis ---------------------------------------------------------
 
@@ -154,30 +196,50 @@ class EventLog:
 
     # -- export -----------------------------------------------------------
 
-    def to_chrome_trace(self, path: Optional[str] = None) -> dict:
+    def to_chrome_trace(self, path: Optional[str] = None, *,
+                        into: Optional[str] = None) -> dict:
         """Perfetto / chrome://tracing ``traceEvents`` JSON: one complete
-        ("X") event per span, one track (tid) per instance, meta as args.
-        Returns the trace dict; also writes it to ``path`` when given."""
-        insts = self.instances()
-        tid = {inst: i for i, inst in enumerate(insts)}
-        trace: List[dict] = [
-            {"ph": "M", "name": "process_name", "pid": 0,
-             "args": {"name": "asyncflow"}}]
-        for inst, i in tid.items():
-            trace.append({"ph": "M", "name": "thread_name", "pid": 0,
-                          "tid": i, "args": {"name": inst}})
-        for e in self.events():
+        ("X") event per span on its thread's track (pid, native tid) at
+        its absolute time in µs, meta and span ids as args. With ``into``
+        (a ``torch.profiler`` ``export_chrome_trace`` file) the spans are
+        added to that trace, at times relative to its
+        ``baseTimeNanoseconds`` as its own events are, so both line up in
+        one file. Returns the trace dict; also writes it to ``path`` when
+        given."""
+        doc = {"traceEvents": [], "displayTimeUnit": "ms"}
+        if into is not None:
+            with open(into) as fh:
+                doc = json.load(fh)
+        base = int(doc.get("baseTimeNanoseconds", 0))
+        pid = os.getpid()
+        events = self.events()
+        named = {(e.get("pid"), e.get("tid")) for e in doc["traceEvents"]
+                 if e.get("ph") == "M" and e.get("name") == "thread_name"}
+        trace: List[dict] = doc["traceEvents"]
+        if into is None:
+            trace.append({"ph": "M", "name": "process_name", "pid": pid,
+                          "args": {"name": "asyncflow"}})
+        threads: Dict[int, str] = {}
+        for e in events:
+            threads.setdefault(e.thread, e.instance)
+        for tid, inst in threads.items():
+            if (pid, tid) not in named:
+                trace.append({"ph": "M", "name": "thread_name", "pid": pid,
+                              "tid": tid, "args": {"name": inst}})
+        for e in events:
+            args = {k: _json_safe(v) for k, v in e.meta.items()}
+            args.update(instance=e.instance, span_id=e.span_id,
+                        parent=e.parent, trace_id=e.trace_id)
             trace.append({
                 "name": e.kind,
                 "cat": "idle" if e.kind in IDLE_KINDS else "stage",
                 "ph": "X",
-                "ts": round(e.start * 1e6, 3),
-                "dur": round(max(e.duration, 0.0) * 1e6, 3),
-                "pid": 0,
-                "tid": tid[e.instance],
-                "args": {k: _json_safe(v) for k, v in e.meta.items()},
+                "ts": round((e.start_ns - base) / 1e3, 3),
+                "dur": round(max(e.end_ns - e.start_ns, 0) / 1e3, 3),
+                "pid": pid,
+                "tid": e.thread,
+                "args": args,
             })
-        doc = {"traceEvents": trace, "displayTimeUnit": "ms"}
         if path:
             with open(path, "w") as fh:
                 json.dump(doc, fh)

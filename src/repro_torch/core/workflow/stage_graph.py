@@ -45,6 +45,7 @@ import numpy as np
 
 from repro_torch.core.obs import (MetricsRegistry, MetricsSampler, build_telemetry,
                                   get_registry)
+from repro_torch.core.obs.tracing import clock_ns
 from repro_torch.core.supervision import (FaultConfig, FaultInjector, ReplicaCrash,
                                           ReplicaSupervisor, RetryPolicy,
                                           call_with_retry)
@@ -850,10 +851,10 @@ class StageRunner:
                         if cfg.mode == "baseline"
                         else min(cfg.train_micro_batch,
                                  cfg.samples_per_step - got))
-                t0 = time.monotonic()
+                t0 = clock_ns()
                 batch = self.tq.get(spec.name, want, consumer=name,
                                     timeout=60.0, lease=use_lease)
-                self.log.record(name, "wait", t0, time.monotonic())
+                self.log.record(name, "wait", t0, clock_ns())
                 if batch is None:
                     self._stop.set()
                     return

@@ -23,7 +23,11 @@ alias the trainer's tensors after their first swap. Before it, a receiver holds 
 trainer's initial tensors, which the optimizer never writes into (it makes
 new parameter tensors each step, ``training/optimizer.py``); for the same
 reason an asynchronous publish may read the old tensors while the trainer
-steps on.
+steps on. Each tree copy counts its bytes (``weight_copy_bytes_total``)
+and seconds (``weight_copy_seconds``) by role; while tracing is on
+(``core/obs/tracing.py``) a publish is a ``weights.publish`` span (``copy``,
+``offer``) on its thread under the caller's span, a swap a ``weights.swap``
+span (``copy``).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.core.obs import get_registry
+from repro_torch.core.obs.tracing import current, span
 from repro_torch.core.supervision.errors import WeightSyncTimeout
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -62,8 +67,7 @@ class WeightChannel:
             "host-buffer bytes offered to the weight channel")
 
     def offer(self, vw: VersionedWeights) -> None:
-        nbytes = sum(a.numel() * a.element_size()
-                     for a in tree_leaves(vw.host_params))
+        nbytes = _tree_bytes(vw.host_params)
         self._m_bytes.inc(nbytes)
         if self.bandwidth_gbps > 0:
             time.sleep(nbytes / (self.bandwidth_gbps * 1e9 / 8))
@@ -160,6 +164,35 @@ class BroadcastWeightChannel(WeightChannel):
         self._h_broadcast.observe(time.monotonic() - t0)
 
 
+def _tree_bytes(tree) -> int:
+    """Bytes of a tree's tensors."""
+    return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
+
+
+class _CopyMeter:
+    """``weight_copy_bytes_total`` and ``weight_copy_seconds`` of one role
+    (publish: device to host; swap: host to device). The seconds cover
+    the copy alone and end when it is done: the tree copies go through
+    pageable host memory, so each returns only once its data has moved."""
+
+    def __init__(self, m, role: str):
+        self._bytes = m.counter(
+            "weight_copy_bytes_total",
+            "bytes of weight trees copied between host and device").labels(
+                role=role)
+        self._seconds = m.histogram(
+            "weight_copy_seconds",
+            "one weight tree copy between host and device").labels(
+                role=role)
+
+    def run(self, copy: Callable[[], Any]):
+        t0 = time.perf_counter()
+        out = copy()
+        self._seconds.observe(time.perf_counter() - t0)
+        self._bytes.inc(_tree_bytes(out))
+        return out
+
+
 class WeightSender:
     """Training-cluster side. ``publish`` is non-blocking in async mode:
     device→host offload + channel send happen on a background thread,
@@ -175,13 +208,19 @@ class WeightSender:
         self._h_sync = m.histogram(
             "weight_sync_seconds",
             "weight publish (D2H + channel) / swap (H2D) durations")
+        self._copy = _CopyMeter(m, "publish")
 
     def publish(self, params, version: int) -> None:
+        caller = current()           # the publish span's parent
+
         def _send():
             t0 = time.monotonic()
-            host = tree_map(lambda a: a.detach().to("cpu", copy=True),
-                            params)
-            self.channel.offer(VersionedWeights(version, host))
+            with span("weights.publish", parent=caller):
+                with span("copy"):
+                    host = self._copy.run(lambda: tree_map(
+                        lambda a: a.detach().to("cpu", copy=True), params))
+                with span("offer"):
+                    self.channel.offer(VersionedWeights(version, host))
             self._h_sync.observe(time.monotonic() - t0, role="publish")
 
         if self.mode == "sync":
@@ -223,10 +262,7 @@ class WeightReceiver:
         self._h_sync = m.histogram(
             "weight_sync_seconds",
             "weight publish (D2H + channel) / swap (H2D) durations")
-        self._m_skipped = m.counter(
-            "weight_versions_skipped_total",
-            "published versions never loaded by a receiver (delayed "
-            "parameter update jumping straight to the newest)")
+        self._copy = _CopyMeter(m, "swap")
 
     def staged_version(self) -> int:
         vw = self.channel.peek()
@@ -234,10 +270,10 @@ class WeightReceiver:
 
     def _swap(self, vw: VersionedWeights) -> None:
         t0 = time.monotonic()
-        self.params = self._to_device(vw.host_params)
-        skipped = vw.version - self.version - 1
-        if skipped > 0:
-            self._m_skipped.inc(skipped)
+        with span("weights.swap"):
+            with span("copy"):
+                self.params = self._copy.run(
+                    lambda: self._to_device(vw.host_params))
         self.version = vw.version
         self._h_sync.observe(time.monotonic() - t0, role="swap")
         if self.replica_id is not None and hasattr(self.channel, "ack"):

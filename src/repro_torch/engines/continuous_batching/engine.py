@@ -19,6 +19,15 @@ chunks, so a continuation resumes from its cached prefix instead of
 re-prefilling it (falling back to one prefill if its pages were
 preempted under pool pressure).
 
+While tracing is on (``core/obs/tracing.py``) the engine records its
+phases as spans: ``cb.generate`` around a call, ``cb.wait`` for the
+engine's lock, ``cb.admit`` with one ``cb.prefill`` a bucket (children
+``forward``, ``sample``, ``sync``, ``write``), and ``cb.round`` a decode
+round (children ``prepare``, ``forward``, ``sample``, ``sync``,
+``retire``). ``rollout_engine_wait_seconds_total`` and
+``rollout_tokens_total`` count the lock's wait and the tokens appended
+always.
+
 Sampling is counter-keyed per sequence — token ``i`` of sequence ``uid``
 is drawn with the key ``fold_seed(seed, uid, i)`` (see
 ``rl/sampling.py``) — so trajectories do not depend on slot assignment
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.obs import get_registry
+from repro_torch.core.obs.tracing import span
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.engines.continuous_batching.paged_kv import (
@@ -57,45 +67,42 @@ def _sample(logits, seed, uids, positions, temperature):
 
 
 @torch.no_grad()
-def _prefill_step(params, cfg, toks, lens, uids, seed, *, temperature):
+def _prefill_forward(params, cfg, toks, lens):
     """Bucketed prefill: one full forward over right-padded prompts
-    yields KV for every prompt position plus the first sampled response
-    token per row. ``lens``/``uids`` are host lists. Returns
-    (k (L,B,S,KVH,hd), v, next_tok (B,), lp (B,))."""
+    yields KV for every prompt position and the logits at each row's last
+    prompt position. ``lens`` is a host list. Returns
+    (k (L,B,S,KVH,hd), v, last logits (B, V))."""
     logits, _, cache = forward(params, cfg, {"tokens": toks},
                                return_cache=True)
     rows = torch.arange(len(lens), device=toks.device)
     last = logits[rows, torch.as_tensor(lens, device=toks.device) - 1]
-    nxt, lp = _sample(last, seed, uids, lens, temperature)
     if "dense_kv" in cache:            # moe: first_dense_layers prepended
         k = torch.cat([cache["dense_kv"]["k"], cache["kv"]["k"]])
         v = torch.cat([cache["dense_kv"]["v"], cache["kv"]["v"]])
     else:
         k, v = cache["kv"]["k"], cache["kv"]["v"]
-    return k, v, nxt, lp
+    return k, v, last
 
 
 @torch.no_grad()
-def _decode_round_step(params, cfg, k_pool, v_pool, page_table, pos, tok,
-                       uids, seed, *, page_size: int, temperature: float,
-                       mesh=None):
-    """One continuous-batching decode step over every slot.
+def _decode_round_forward(params, cfg, k_pool, v_pool, page_table, pos_t,
+                          tok, *, page_size: int, mesh=None):
+    """One continuous-batching decode step over every slot, to its logits.
 
     Gathers each slot's pages into a dense per-slot view, runs the
     one-token ``decode_step`` (which writes the new KV row at ``pos``
-    into the view), scatters that single row back into the page pool in
-    place, and samples the next token per slot with its counter-based
-    key. Idle slots carry page-table rows of zeros and ``pos`` 0, so their
-    dummy rows all land on row 0 of the reserved scratch page 0: several
-    writes to one place, harmless, since no live sequence reads it.
-    ``pos``/``uids`` are host lists; returns (next_tok (B,), lp (B,))."""
+    into the view) and scatters that single row back into the page pool
+    in place. Idle slots carry page-table rows of zeros and ``pos`` 0, so
+    their dummy rows all land on row 0 of the reserved scratch page 0:
+    several writes to one place, harmless, since no live sequence reads
+    it. ``page_table``, ``pos_t`` and ``tok`` are on the device; returns
+    logits (B, V)."""
     L, _, ps, KVH, hd = k_pool.shape
     B, PPS = page_table.shape
     S = PPS * ps
     dev = k_pool.device
     k_view = k_pool[:, page_table].reshape(L, B, S, KVH, hd)
     v_view = v_pool[:, page_table].reshape(L, B, S, KVH, hd)
-    pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
     logits, new_cache = decode_step(params, cfg, {"k": k_view, "v": v_view},
                                     tok, pos_t, mesh=mesh)
     bidx = torch.arange(B, device=dev)
@@ -104,7 +111,7 @@ def _decode_round_step(params, cfg, k_pool, v_pool, page_table, pos, tok,
     off = pos_t % page_size
     k_pool[:, phys, off] = new_cache["k"][:, bidx, pos_t]
     v_pool[:, phys, off] = new_cache["v"][:, bidx, pos_t]
-    return _sample(logits, seed, uids, [p + 1 for p in pos], temperature)
+    return logits
 
 
 class ContinuousBatchingEngine:
@@ -188,6 +195,14 @@ class ContinuousBatchingEngine:
         self._c_preempt = m.counter(
             "rollout_preemptions_total",
             "sequences evicted under KV-pool pressure").labels(engine="cb")
+        self._c_wait = m.counter(
+            "rollout_engine_wait_seconds_total",
+            "seconds generate calls waited for the engine's lock").labels(
+                engine="cb")
+        self._c_tokens = m.counter(
+            "rollout_tokens_total",
+            "tokens appended to sequences (prefill and decode)").labels(
+                engine="cb")
 
     # ------------------------------------------------------------------ #
     # request construction                                                #
@@ -225,9 +240,16 @@ class ContinuousBatchingEngine:
         Returns ``(finished, paused)`` lists of :class:`Sequence`; with
         ``emit`` each finished sequence is handed off the moment it
         completes (per-sample streaming), before the call returns."""
-        with self._lock:
-            return self._generate_locked(params, list(items), version,
-                                         emit)
+        with span("cb.generate"):
+            t0 = time.perf_counter()
+            with span("cb.wait"):
+                self._lock.acquire()
+            try:
+                self._c_wait.inc(time.perf_counter() - t0)
+                return self._generate_locked(params, list(items), version,
+                                             emit)
+            finally:
+                self._lock.release()
 
     def _generate_locked(self, params, items, version, emit):
         sched = self.scheduler
@@ -259,6 +281,11 @@ class ContinuousBatchingEngine:
         assigns = self.scheduler.take_admissions()
         if not assigns:
             return 0
+        with span("cb.admit") as sp:
+            sp.set("slots", len(assigns))
+            return self._admit(params, assigns)
+
+    def _admit(self, params, assigns) -> int:
         ok: List[tuple] = []
         deferred = False
         for slot, seq in assigns:
@@ -316,20 +343,31 @@ class ContinuousBatchingEngine:
         samples are discarded)."""
         t0 = time.monotonic()
         B = _next_pow2(len(group))
-        toks = np.zeros((B, pad_len), np.int64)
-        lens = [1] * B
-        uids = [0] * B
-        for i, (_, q) in enumerate(group):
-            toks[i, :q.length] = q.tokens
-            lens[i] = q.length
-            uids[i] = q.uid
-        k, v, nxt, lp = _prefill_step(
-            params, self.cfg, torch.from_numpy(toks).to(self.device), lens,
-            uids, self.seed, temperature=self.temperature)
-        nxt, lp = nxt.tolist(), lp.tolist()
-        for i, (_, q) in enumerate(group):
-            self.pool.write_prefill(q.uid, k[:, i], v[:, i], q.length)
-            self._append_token(q, int(nxt[i]), float(lp[i]))
+        with span("cb.prefill") as sp:
+            sp.set("rows", B)
+            sp.set("pad_len", pad_len)
+            with span("forward"):
+                toks = np.zeros((B, pad_len), np.int64)
+                lens = [1] * B
+                uids = [0] * B
+                for i, (_, q) in enumerate(group):
+                    toks[i, :q.length] = q.tokens
+                    lens[i] = q.length
+                    uids[i] = q.uid
+                k, v, last = _prefill_forward(
+                    params, self.cfg, torch.from_numpy(toks).to(self.device),
+                    lens)
+            with span("sample"):
+                nxt, lp = _sample(last, self.seed, uids, lens,
+                                  self.temperature)
+            with span("sync"):
+                nxt, lp = nxt.tolist(), lp.tolist()
+            with span("write"):
+                for i, (_, q) in enumerate(group):
+                    self.pool.write_prefill(q.uid, k[:, i], v[:, i],
+                                            q.length)
+                    self._append_token(q, int(nxt[i]), float(lp[i]))
+                self._c_tokens.inc(len(group))
         self._h_prefill.observe(time.monotonic() - t0)
 
     # -- decode dispatch ---------------------------------------------------
@@ -344,6 +382,40 @@ class ContinuousBatchingEngine:
 
     def _decode_one_round(self, params, finished, paused, emit) -> None:
         """Advance every occupied slot one token; retire/park finishers."""
+        with span("cb.round") as rnd:
+            with span("prepare"):
+                stepping = self._grow_pages()
+                if stepping:
+                    t0 = time.monotonic()
+                    page_table, pos_t, tok, pos, uids = \
+                        self._round_inputs(stepping)
+            rnd.set("slots", len(stepping))
+            if not stepping:
+                with span("retire"):
+                    self._retire(finished, paused, emit)
+                return
+            with span("forward"):
+                logits = _decode_round_forward(
+                    params, self.cfg, self.pool.k, self.pool.v, page_table,
+                    pos_t, tok, page_size=self.page_size, mesh=self.mesh)
+            with span("sample"):
+                nxt, lp = _sample(logits, self.seed, uids,
+                                  [p + 1 for p in pos], self.temperature)
+            with span("sync"):
+                nxt, lp = nxt.tolist(), lp.tolist()
+            with span("retire"):
+                for s, q in stepping:
+                    self.pool.kv_len[q.uid] = q.length
+                    self._append_token(q, int(nxt[s]), float(lp[s]))
+                self._c_tokens.inc(len(stepping))
+                self._h_decode.observe(time.monotonic() - t0)
+                self._retire(finished, paused, emit)
+
+    def _grow_pages(self) -> List[tuple]:
+        """The (slot, sequence) pairs that step this round, each owning
+        the pages its next KV row needs (page-boundary growth; under pool
+        pressure a parked continuation is evicted, or the sequence itself
+        drops its pages and waits at the front of the queue)."""
         active = [(s, q) for s, q in self.scheduler.active()
                   if not (q.done or q.paused)]
         stepping = []
@@ -362,10 +434,12 @@ class ContinuousBatchingEngine:
                     self._c_preempt.inc()
                     continue
             stepping.append((s, q))
-        if not stepping:
-            self._retire(finished, paused, emit)
-            return
-        t0 = time.monotonic()
+        return stepping
+
+    def _round_inputs(self, stepping):
+        """The round's page table, positions and tokens on the device
+        (idle slots: zeros), and each slot's position and uid on the
+        host."""
         B = self.num_slots
         page_table = np.zeros((B, self.pool.pages_per_seq), np.int64)
         pos = [0] * B
@@ -376,18 +450,10 @@ class ContinuousBatchingEngine:
             pos[s] = q.length - 1                  # KV row being written
             tok[s] = q.tokens[-1]
             uids[s] = q.uid
-        nxt, lp = _decode_round_step(
-            params, self.cfg, self.pool.k, self.pool.v,
-            torch.from_numpy(page_table).to(self.device), pos,
-            torch.tensor(tok, dtype=torch.long, device=self.device), uids,
-            self.seed, page_size=self.page_size,
-            temperature=self.temperature, mesh=self.mesh)
-        nxt, lp = nxt.tolist(), lp.tolist()
-        for s, q in stepping:
-            self.pool.kv_len[q.uid] = q.length
-            self._append_token(q, int(nxt[s]), float(lp[s]))
-        self._h_decode.observe(time.monotonic() - t0)
-        self._retire(finished, paused, emit)
+        dev = self.device
+        return (torch.from_numpy(page_table).to(dev),
+                torch.as_tensor(pos, dtype=torch.long, device=dev),
+                torch.tensor(tok, dtype=torch.long, device=dev), pos, uids)
 
     def _retire(self, finished, paused, emit) -> None:
         """Free slots of finished/paused sequences (per-sample handoff:

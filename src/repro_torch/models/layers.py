@@ -15,6 +15,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.obs.registry import DefaultCounter
+
+_CAST_BYTES = DefaultCounter(
+    "model_cast_bytes_total",
+    "bytes that dense's and unembed's dtype conversions read and write")
+
+
+def _cast(t, dtype):
+    """``t`` in ``dtype``; a conversion that changes the dtype counts the
+    bytes it reads and writes (``model_cast_bytes_total``)."""
+    if t.dtype == dtype:
+        return t
+    _CAST_BYTES.inc(t.numel() * (t.element_size() + dtype.itemsize))
+    return t.to(dtype)
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -45,9 +60,9 @@ def init_dense(gen, d_in, d_out, *, bias=False, scale=0.02,
 
 
 def dense(p, x, compute_dtype=torch.bfloat16):
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    y = torch.matmul(_cast(x, compute_dtype), _cast(p["w"], compute_dtype))
     if "b" in p:
-        y = y + p["b"].to(compute_dtype)
+        y = y + _cast(p["b"], compute_dtype)
     return y
 
 
@@ -163,5 +178,5 @@ def embed(p, tokens, compute_dtype=torch.bfloat16):
 
 
 def unembed(p, x, compute_dtype=torch.bfloat16):
-    return torch.matmul(x.to(compute_dtype),
-                        p["table"].to(compute_dtype).T)
+    return torch.matmul(_cast(x, compute_dtype),
+                        _cast(p["table"], compute_dtype).T)

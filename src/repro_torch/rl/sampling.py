@@ -5,7 +5,9 @@ The rollout engine's inner loop: batched prompt feed (teacher-forced
 decode steps, sharing the exact production serve path) followed by
 temperature sampling of up to ``max_new_tokens``, collecting per-token
 behavior logprobs — what the actor-update step needs as ``old_logprob``.
-The reference's ``jax.lax.scan`` is a Python loop here.
+The reference's ``jax.lax.scan`` is a Python loop here; while tracing is
+on (``core/obs/tracing.py``) each step is a ``fixed.step`` span with
+``forward`` and ``sample`` children.
 
 Sampling: the reference keys each draw with threefry
 ``fold_in(fold_in(key, uid), pos)``, which torch cannot reproduce. Here
@@ -20,6 +22,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.obs.tracing import span
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_cache
@@ -91,20 +94,23 @@ def _generate_loop(params, cfg, prompt_tokens, prompt_lens, rng_seed, *,
     out_lps = torch.zeros((B, total), dtype=torch.float32, device=device)
     cur = toks[:, 0]
     for t in range(total - 1):
-        logits, cache = decode_step(
-            params, cfg, cache, cur,
-            torch.full((B,), t, dtype=torch.long, device=device))
-        logits = logits.float() / max(temperature, 1e-6)
-        logp = torch.log_softmax(logits, dim=-1)
-        sampled = categorical(logits, [fold_seed(rng_seed, i, t + 1)
-                                       for i in range(B)])
-        # during the prompt: next token is forced; after: sampled
-        in_prompt = (t + 1) < lens
-        forced = toks[:, min(t + 1, Lp - 1)]
-        nxt = torch.where(in_prompt, forced, sampled)
-        out_toks[:, t + 1] = nxt
-        out_lps[:, t + 1] = logp.gather(1, nxt[:, None])[:, 0]
-        cur = nxt
+        with span("fixed.step"):
+            with span("forward"):
+                logits, cache = decode_step(
+                    params, cfg, cache, cur,
+                    torch.full((B,), t, dtype=torch.long, device=device))
+            with span("sample"):
+                logits = logits.float() / max(temperature, 1e-6)
+                logp = torch.log_softmax(logits, dim=-1)
+                sampled = categorical(logits, [fold_seed(rng_seed, i, t + 1)
+                                               for i in range(B)])
+                # during the prompt: next token is forced; after: sampled
+                in_prompt = (t + 1) < lens
+                forced = toks[:, min(t + 1, Lp - 1)]
+                nxt = torch.where(in_prompt, forced, sampled)
+                out_toks[:, t + 1] = nxt
+                out_lps[:, t + 1] = logp.gather(1, nxt[:, None])[:, 0]
+                cur = nxt
     pos = torch.arange(total, device=device)[None, :]
     resp_mask = (pos >= lens[:, None]).float()
     return (out_toks.cpu().numpy().astype(np.int32), out_lps.cpu().numpy(),

@@ -3,6 +3,7 @@ every mode and on both rollout backends, with and without the KL stage,
 and with the planner's sizing and live rebalance; the weight path's
 aliasing rules; the refusals; and the framework-free modules, which the
 port copies with only their import paths changed."""
+import ast
 import dataclasses
 import math
 import re
@@ -189,13 +190,62 @@ COPIED = ["rl/reward.py", "engines/adapter.py",
           "core/planner/planner.py", "core/planner/elastic.py"]
 
 
+# Where the port changed a copied module on purpose, the case checks
+# exactly that change. control_plane.py drops two counters nothing read
+# (each pattern cuts one statement out of the reference's text).
+CUT = {"core/transfer_queue/control_plane.py": (
+    r"self\._m_requests = m\.counter\(.*?task=task\)\s*",
+    r"self\._m_rows_ready = m\.counter\(.*?task=task\)\s*",
+    r"self\._m_rows_ready\.inc\(\)\s*",
+    r"self\._m_requests\.inc\(\)\s*")}
+# events.py stamps spans on the device trace's clock with thread, parent
+# and trace ids (core/obs/tracing.py): its recording and export functions
+# are rewritten; every other function, its analysis and rendering, and
+# its module constants stay the reference's.
+REWRITTEN = {"core/workflow/events.py": {
+    "EventLog.__init__", "EventLog.record", "EventLog.span",
+    "EventLog._Span.__init__", "EventLog._Span.__enter__",
+    "EventLog._Span.__exit__", "EventLog.to_chrome_trace"}}
+
+
+def _functions(text):
+    """{qualified name: source} of every function, methods included."""
+    out = {}
+
+    def walk(node, prefix):
+        for n in ast.iter_child_nodes(node):
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+                if isinstance(n, ast.FunctionDef):
+                    out[prefix + n.name] = ast.get_source_segment(text, n)
+                walk(n, prefix + n.name + ".")
+    walk(ast.parse(text), "")
+    return out
+
+
+def _constants(text):
+    return [ast.dump(n) for n in ast.parse(text).body
+            if isinstance(n, ast.Assign)]
+
+
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_modules_differ_only_in_import_paths(path):
     def norm(text):
         text = text.replace("repro_torch", "repro")
         return re.sub(r"\s+", " ", text)
-    assert norm((SRC / "repro_torch" / path).read_text()) == \
-        norm((SRC / "repro" / path).read_text())
+    port = (SRC / "repro_torch" / path).read_text()
+    ref = (SRC / "repro" / path).read_text()
+    if path in REWRITTEN:
+        pf, rf = _functions(port), _functions(ref)
+        kept = set(rf) - REWRITTEN[path]
+        assert len(kept) >= 13 and kept <= set(pf)
+        for name in sorted(kept):
+            assert norm(pf[name]) == norm(rf[name]), name
+        assert _constants(port) == _constants(ref)
+        return
+    for pattern in CUT.get(path, ()):
+        ref, n = re.subn(pattern, "", ref, flags=re.S)
+        assert n == 1, pattern
+    assert norm(port) == norm(ref)
 
 
 def test_cost_model_differs_only_in_imports_and_the_hw_figures():
