@@ -23,7 +23,13 @@ which raises on failure:
    port never calls it: with the band as its mask, and for flash without
    a window also with ``is_causal``) and the card's bound; decode rows
    also carry the kernel's device time from ``torch.profiler`` and count
-   in their bound only the bytes of the valid keys;
+   in their bound only the bytes of the valid keys; the decode kernel's
+   paged mode (the continuous engine's rounds) reads page pools through
+   shuffled page tables at phase 3's slots and at the rollout benchmark
+   cell's 256 x 2304 keys, with idle slots on page 0, held to the plain
+   version on the gathered views and bit for bit to the dense mode, and
+   timed beside the gather and the dense mode; the output's
+   ``decode_attention`` entry is the paged row (``dense_ms`` beside it);
 3. the continuous-batching engine serving full-width Qwen2.5-7B (all 28
    layers, vocab 152,064, random weights from a seed): 16 requests,
    4 slots, 32 new tokens each; the launch counts of both kernels over
@@ -341,6 +347,9 @@ SFU_PER_SM_CLOCK = 16      # H100 special-function-unit ops per SM and clock
 SMS = 132
 MAX_NEW = 32
 NUM_SLOTS = 4
+ROLLOUT_DECODE = (256, 2304, 8, 8)  # a decode round of the benchmark's
+                           # rollout cell: slots, keys, page size, and
+                           # idle slots in the ragged row
 TEMPERATURE = 0.8
 SEED = 0                   # weights, prompts and sampling keys
 FLEET_REPLICAS = 2         # the serving fleet: replicas, the injector's
@@ -534,6 +543,81 @@ def _decode_row(torch, gen, dtype, B, S, H, KVH, hd, fill):
         bound_ms=bound, bound_by=by)
 
 
+def _paged_row(torch, gen, dtype, B, S, H, KVH, hd, ps, fill, n_idle):
+    """``paged_decode_attention`` on one layer's page pools read through a
+    shuffled page table, as a decode round of the continuous engine reads
+    them: row b owns ceil(fill[b] / ps) pages drawn in random order from
+    1.., the rest of its table page 0; the first ``n_idle`` rows are idle
+    slots (one key, the whole table on page 0). Checked against the plain
+    version on the gathered (B, S) views, and it must equal
+    ``decode_attention`` there bit for bit. Timed through the wrapper
+    beside its kernel's device time (profiler), the gather of the views
+    (what a round did per layer before the paged mode), the dense mode on
+    them, the plain version and SDPA (each of these two after the gather);
+    the bound counts the valid keys' K and V rows, q, out, the mask and
+    the table. Returns the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_ref, paged_decode_attention)
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    fill = fill.clone()
+    fill[:n_idle] = 1
+    need = -(-fill // ps)
+    need[:n_idle] = 0
+    pages = 1 + int(need.sum().item())
+    ids = torch.randperm(pages - 1, generator=gen, device=dev) + 1
+    table = torch.zeros((B, S // ps), dtype=torch.int64, device=dev)
+    at = 0
+    for b, n in enumerate(need.tolist()):
+        table[b, :n] = ids[at:at + n]
+        at += n
+    q, k_pool, v_pool = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                         for shape in ((B, 1, H, hd), (pages, ps, KVH, hd),
+                                       (pages, ps, KVH, hd)))
+    valid = torch.arange(S, device=dev)[None, :] < fill[:, None]
+
+    def gather(q, k_pool, v_pool, table, valid):
+        return (q, k_pool[table].reshape(B, S, KVH, hd),
+                v_pool[table].reshape(B, S, KVH, hd), valid)
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=m[:, None, None, :], enable_gqa=True)
+
+    dense = gather(q, k_pool, v_pool, table, valid)
+    out = paged_decode_attention(q, k_pool, v_pool, table, valid)
+    shape = (B, S, H, KVH, hd, ps)
+    err = _check("paged_decode_attention", dtype, shape, out,
+                 decode_attention_ref(*dense))
+    if not torch.equal(out, decode_attention(*dense)):
+        raise AssertionError(f"paged_decode_attention {dtype} {shape}: not "
+                             "bit for bit decode_attention on the gathered "
+                             "views")
+    sets = _copies(torch, (q, k_pool, v_pool, table, valid))
+    dense_sets = _copies(torch, dense)
+    keys = int(valid.sum().item())
+    e = q.element_size()
+    nbytes = (2 * q.numel() * e + 2 * keys * KVH * hd * e + valid.numel()
+              + table.numel() * table.element_size())
+    bound, by = _bound(nbytes, 4 * keys * H * hd, dtype)
+    return dict(
+        kernel="decode_attention", mode="paged", dtype=dtype, B=B, S=S, H=H,
+        KVH=KVH, hd=hd, page_size=ps, idle=n_idle, valid_keys=keys,
+        filled=fill.tolist(),
+        max_abs_err=err, ms=_time_ms(torch, paged_decode_attention, sets, 50),
+        device_ms=_device_ms(torch, paged_decode_attention, sets, 50,
+                             "decode_kernel"),
+        gather_ms=_time_ms(torch, gather, sets, 20),
+        dense_device_ms=_device_ms(torch, decode_attention, dense_sets, 50,
+                                   "decode_kernel"),
+        plain_ms=_time_ms(torch, lambda *a: decode_attention_ref(
+            *gather(*a)), sets, 10),
+        library_ms=_time_ms(torch, lambda *a: sdpa(*gather(*a)), sets, 20),
+        bound_ms=bound, bound_by=by)
+
+
 def _flash_row(torch, gen, dtype, B, S, H, KVH, hd, window):
     """``flash_attention`` against its plain version on random q, K, V,
     timed beside its C entry alone, the plain version, SDPA with the band
@@ -656,11 +740,13 @@ def flash_build_report():
 
 
 def decode_build_report():
-    """The decode kernels per instantiation; raises unless every bf16
+    """The decode kernels per instantiation (``_paged``: the mode that
+    reads a page pool through a page table); raises unless every bf16
     instantiation runs on the tensor cores (HMMA, from mma.sync)."""
     return _build_report(
         "decode_attention",
         lambda m: ("bf16" if "bfloat16" in m else "fp32") + "_hd" + _hd(m)
+        + ("_paged" if "Lb1E" in m else "")
         if "decode_kernel" in m else None, "HMMA")
 
 
@@ -690,20 +776,26 @@ def loss_build_report():
     return report
 
 
-def phase_kernels(torch, max_len, vlm_len, timed):
+def phase_kernels(torch, max_len, page_size, vlm_len, timed):
     """Kernel vs plain version at Qwen2.5-7B's attention shapes (28 heads,
     4 KV heads, hd 128), the decode rows partly filled (the timed one),
     full, and ragged with an empty row; then at StableLM-2-12B's (32 heads,
     8 KV heads, hd 160); then at Grok-1's and InternVL2-26B's 48/8 heads
     (hd 128): Grok's decode over ``max_len`` keys and its 4 x 2048 prefill
     bucket, InternVL2's decode over ``vlm_len`` keys and its prefill of
-    the vision prefix and prompt. Returns {name: row} for the timed
-    shapes."""
+    the vision prefix and prompt. Then the decode kernel's paged mode, the
+    continuous engine's decode rounds, at Qwen's heads on pages of
+    ``page_size``: the slots and keys of phase 3, partly filled (the
+    dense rows' lengths), full, and ragged with an idle slot, in bf16 and
+    fp32, and a round of the benchmark's rollout cell (``ROLLOUT_DECODE``)
+    partly filled and ragged in bf16. Returns {name: row} for the timed
+    shapes; the decode one is the paged row (the serving paths' mode) with
+    the dense mode's time at the same shape and lengths as ``dense_ms``."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    rows, out = [], {}
+    rows, out, lengths = [], {}, {}
     for dtype in ("bfloat16", "float32"):
         for (H, KVH, hd), B, S, fill in (
                 (QWEN_HEADS, 4, max_len, "part"),
@@ -719,8 +811,7 @@ def phase_kernels(torch, max_len, vlm_len, timed):
                 lens[:] = S
             row = _decode_row(torch, gen, dtype, B, S, H, KVH, hd, lens)
             rows.append(row)
-            if (dtype, B, S, H, fill) == timed["decode_attention"]:
-                out["decode_attention"] = row
+            lengths[dtype, B, S, H, fill] = lens, row["ms"]
         for (H, KVH, hd), B, S, window in (
                 (QWEN_HEADS, 4, 8, 0), (QWEN_HEADS, 4, 8, 256),
                 (QWEN_HEADS, 4, 1000, 0), (QWEN_HEADS, 4, 1000, 256),
@@ -733,6 +824,23 @@ def phase_kernels(torch, max_len, vlm_len, timed):
             rows.append(row)
             if (dtype, B, S, H, window) == timed["flash_attention"]:
                 out["flash_attention"] = row
+    H, KVH, hd = QWEN_HEADS
+    slots, keys, rollout_ps, idle = ROLLOUT_DECODE
+    for dtype, B, S, ps, fill, n_idle in (
+            *((dt, NUM_SLOTS, max_len, page_size, fill, n_idle)
+              for dt in ("bfloat16", "float32")
+              for fill, n_idle in (("part", 0), ("full", 0),
+                                   ("ragged", 1))),
+            ("bfloat16", slots, keys, rollout_ps, "part", 0),
+            ("bfloat16", slots, keys, rollout_ps, "ragged", idle)):
+        lens, dense_ms = lengths.get((dtype, B, S, H, fill), (None, None))
+        if lens is None:
+            lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        row = _paged_row(torch, gen, dtype, B, S, H, KVH, hd, ps, lens,
+                         n_idle)
+        rows.append(row)
+        if (dtype, B, S, H, fill) == timed["decode_attention"]:
+            out["decode_attention"] = dict(row, dense_ms=dense_ms)
     for row in rows:
         print("kernel_vs_plain", json.dumps(row))
     print("kernel_vs_plain_launches", json.dumps({
@@ -1023,7 +1131,7 @@ def phase_loss_kernels(torch, timed):
     f_entry = _build.kernel("fused_rl_loss_fwd")
     V = 152_064
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    rows, out = [], {}
+    rows, out, lengths = [], {}, {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for N, VV in ((4096, V), (TRAIN_ROWS, V), (4096, SSM_VOCAB),
@@ -3254,7 +3362,7 @@ def main():
                                  0)}
     vlm_len = get_config("internvl2_26b").vision_tokens + max(
         len(p) for p in prompts[:VLM_REQUESTS]) + VLM_NEW
-    krows = phase_kernels(torch, max_len, vlm_len, timed)
+    krows = phase_kernels(torch, max_len, eng.page_size, vlm_len, timed)
     torch.cuda.empty_cache()
 
     # -- 3. continuous engine, full-width Qwen2.5-7B -----------------------
@@ -3518,7 +3626,8 @@ def main():
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{k: row[k] for k in ("mode", "dense_ms") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-KERNEL_HEAD = ("template <typename T, int HD>\n__global__ void "
+KERNEL_HEAD = ("template <typename T, int HD, bool PAGED>\n__global__ void "
                "__launch_bounds__(NT)\ndecode_kernel(")
 CLUSTER_MERGE = (
     "  const bool any = run_pass(c, false);\n",
@@ -90,17 +90,19 @@ decode_merge(T* __restrict__ out, int H, int KVH, int nsplit) {
 }
 """
 LAUNCH_TAIL = """  return (int)cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, HD>, static_cast<const T*>(q),
+      &cfg, decode_kernel<T, HD, PAGED>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), S, H, KVH,
-      chunk, scale_log2);
+      static_cast<const uint8_t*>(valid),
+      static_cast<const long long*>(table), static_cast<T*>(out), S, H, KVH,
+      chunk, ps, scale_log2);
 }
 """
 TWO_LAUNCH_LAUNCH = """  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, HD>, static_cast<const T*>(q),
+      &cfg, decode_kernel<T, HD, PAGED>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), S, H, KVH,
-      chunk, scale_log2);
+      static_cast<const uint8_t*>(valid),
+      static_cast<const long long*>(table), static_cast<T*>(out), S, H, KVH,
+      chunk, ps, scale_log2);
   if (e != cudaSuccess) return (int)e;
   decode_merge<T, HD><<<dim3(KVH * ngroups, B), NT, 0, st>>>(
       static_cast<T*>(out), H, KVH, nsplit);
@@ -217,7 +219,8 @@ def build(nvcc, flags, signature):
 
 def instance(mangled):
     hd = re.search(r"Li(\d+)E", mangled).group(1)
-    return ("bf16" if "bfloat16" in mangled else "fp32") + "_hd" + hd
+    return (("bf16" if "bfloat16" in mangled else "fp32") + "_hd" + hd
+            + ("_paged" if "Lb1E" in mangled else ""))
 
 
 def report(log, lib):

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel decode_attention_kernel / _decode_kernel
 // (src/repro/kernels/decode_attention/decode_attention.py:21-92).
 //
-// q (B,1,H,hd); k, v (B,S,KVH,hd); valid (B,S) bool, any pattern; out
-// (B,1,H,hd) in the dtype of q. Scores are fp32, scaled by hd^-0.5; query
+// q (B,1,H,hd); k, v (B,S,KVH,hd), or in the paged mode one layer's page
+// pools (num_pages, page_size, KVH, hd) and a page table (B, S/page_size)
+// of int64 page ids; valid (B,S) bool, any pattern; out (B,1,H,hd) in the
+// dtype of q. Scores are fp32, scaled by hd^-0.5; query
 // head h reads KV head h / (H/KVH). A masked key weighs exactly 0, as
 // exp(-1e30 - m) does in the reference; a row with no valid key at all
 // gives the uniform average of its S values, as the reference's scores of
@@ -52,6 +54,16 @@
 //  * A row with no valid key: the blocks find it from each other's flags
 //    after that barrier, and then take a pass of their own that reads only
 //    V (every score 0, every weight 1) before they merge.
+//  * Addressing, a compile-time mode (PAGED): dense, key j of batch row b
+//    lies at row b*S + j of k and v; paged, at row page_table[b, j / ps] *
+//    ps + j % ps of the layer's pool (ps the page size). A paged block
+//    copies its split's page ids into shared memory once, before its
+//    tiles, and only a row's address differs: the blocks, clusters,
+//    splits, masks, copies, products and merge are the same code, so the
+//    paged call gives bit for bit what the dense call gives on the
+//    gathered per-row view at the same (nsplit, chunk). The continuous
+//    engine's decode round reads its page pool so, and materialises no
+//    per-slot view of the cache.
 #include <cooperative_groups.h>
 #include <type_traits>
 
@@ -77,6 +89,7 @@ constexpr int WT = 64;            // tiles per mask window
 constexpr bool SKIP_MASKED = true;   // copy only tiles and rows that hold
                                      // a valid key
 constexpr int MAX_SPLITS = 8;     // blocks per cluster (portable limit)
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
 
 template <typename T, int HD>
 struct Cfg {
@@ -105,7 +118,7 @@ struct Cfg {
 };
 
 // Where a block's pieces sit in shared memory, and what it works on.
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 struct Ctx {
   using C = Cfg<T, HD>;
   uint8_t* ring;     // K/V stages; after a pass, the warps' states
@@ -116,11 +129,15 @@ struct Ctx {
   uint32_t* bits;    // valid bits of the current window
   int* list;         // its tiles that hold a valid key
   int* flag;         // three ints
-  const T* k;        // rows of this (batch, KV head): key j at k + j*kstride
-  const T* v;
+  const T* k;        // rows of this KV head: dense, the batch row's, key
+  const T* v;        // j at k + j*kstride; paged, the pool's (row_offset)
   const uint8_t* valid;   // the batch row's mask
+  const int* pages;  // paged: the split's page ids, from page p0 on
   size_t kstride;
   int lo, hi;        // the split's keys
+  int ps, p0;        // paged: the page size, the split's first page,
+  int ps_shift;      // and j / ps as (umulhi(j, ps_magic) + j) >> ps_shift
+  unsigned ps_magic; // (Granlund-Montgomery, exact for 0 <= j < 2^31)
   float scale_log2;
 
   __device__ uint32_t k_stage(int s) const {
@@ -131,12 +148,28 @@ struct Ctx {
   }
 };
 
+// Offset of key j's row from c.k and c.v, in elements. The paged mode
+// divides by the page size with a multiply and a shift: the copies wait
+// on the address, and with a division the paged mode took 19% longer than
+// the dense one at 256 rows of 2304 keys, with this 6%.
+template <typename T, int HD, bool PAGED>
+__device__ __forceinline__ size_t row_offset(const Ctx<T, HD, PAGED>& c,
+                                             int j) {
+  if constexpr (PAGED) {
+    const int page = (__umulhi((unsigned)j, c.ps_magic) + j) >> c.ps_shift;
+    return ((size_t)c.pages[page - c.p0] * c.ps + (j - page * c.ps)) *
+           c.kstride;
+  } else {
+    return (size_t)j * c.kstride;
+  }
+}
+
 // Valid bits of keys [w0, w0 + WT*BK) within the split into bits[] (all
 // keys of the split when `uniform`), the tiles holding one into list[]
 // (every tile without SKIP_MASKED); returns the length of the list, the
 // same in every thread, and sets `hit` if a bit is set.
-template <typename T, int HD>
-__device__ int build_window(const Ctx<T, HD>& c, int w0, bool uniform,
+template <typename T, int HD, bool PAGED>
+__device__ int build_window(const Ctx<T, HD, PAGED>& c, int w0, bool uniform,
                             bool& hit) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int span = min(c.hi - w0, WT * BK);      // keys of this window
@@ -176,8 +209,8 @@ __device__ int build_window(const Ctx<T, HD>& c, int w0, bool uniform,
 // Copies of tile t of the window at w0 into stage s: the rows whose valid
 // bit is set (every row of the split without SKIP_MASKED), zeros elsewhere;
 // V only in the uniform pass.
-template <typename T, int HD>
-__device__ void issue_tile(const Ctx<T, HD>& c, int w0, int t, int s,
+template <typename T, int HD, bool PAGED>
+__device__ void issue_tile(const Ctx<T, HD, PAGED>& c, int w0, int t, int s,
                            bool uniform) {
   using C = Cfg<T, HD>;
   const int key0 = w0 + t * BK;
@@ -188,7 +221,7 @@ __device__ void issue_tile(const Ctx<T, HD>& c, int w0, int t, int s,
     const bool on = SKIP_MASKED
                         ? (c.bits[bit / 32] >> (bit % 32)) & 1u
                         : key0 + r < c.hi;
-    const size_t off = on ? (size_t)(key0 + r) * c.kstride : 0;
+    const size_t off = on ? row_offset(c, key0 + r) : 0;
     const uint32_t dst = r * C::ROW + ch * 16;
     if (!uniform)
       cp_async16(ks + dst, reinterpret_cast<const uint8_t*>(c.k + off) +
@@ -200,9 +233,9 @@ __device__ void issue_tile(const Ctx<T, HD>& c, int w0, int t, int s,
 
 // One warp's 16 keys of a tile: scores into s[j][e] (rows lane/4 and
 // lane/4 + 8, keys 8j + 2(lane%4) + e%2 of the warp's 16), unscaled.
-template <int HD>
-__device__ __forceinline__ void scores(const Ctx<__nv_bfloat16, HD>& c,
-                                       int s, float (&sc)[2][4]) {
+template <int HD, bool PAGED>
+__device__ __forceinline__ void scores(
+    const Ctx<__nv_bfloat16, HD, PAGED>& c, int s, float (&sc)[2][4]) {
   using C = Cfg<__nv_bfloat16, HD>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t qa = smem_addr(c.sq) +
@@ -221,8 +254,8 @@ __device__ __forceinline__ void scores(const Ctx<__nv_bfloat16, HD>& c,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void scores(const Ctx<float, HD>& c, int s,
+template <int HD, bool PAGED>
+__device__ __forceinline__ void scores(const Ctx<float, HD, PAGED>& c, int s,
                                        float (&sc)[2][4]) {
   using C = Cfg<float, HD>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -255,10 +288,10 @@ __device__ __forceinline__ void scores(const Ctx<float, HD>& c, int s,
 }
 
 // O += P V for one warp's 16 keys; p as the score fragment.
-template <int HD>
-__device__ __forceinline__ void accumulate(const Ctx<__nv_bfloat16, HD>& c,
-                                           int s, const float (&p)[2][4],
-                                           float (&o)[HD / 8][4]) {
+template <int HD, bool PAGED>
+__device__ __forceinline__ void accumulate(
+    const Ctx<__nv_bfloat16, HD, PAGED>& c, int s, const float (&p)[2][4],
+    float (&o)[HD / 8][4]) {
   using C = Cfg<__nv_bfloat16, HD>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
@@ -278,9 +311,9 @@ __device__ __forceinline__ void accumulate(const Ctx<__nv_bfloat16, HD>& c,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void accumulate(const Ctx<float, HD>& c, int s,
-                                           const float (&p)[2][4],
+template <int HD, bool PAGED>
+__device__ __forceinline__ void accumulate(const Ctx<float, HD, PAGED>& c,
+                                           int s, const float (&p)[2][4],
                                            float (&o)[HD / 8][4]) {
   using C = Cfg<float, HD>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -314,8 +347,8 @@ __device__ __forceinline__ void accumulate(const Ctx<float, HD>& c, int s,
 // its fragment, l this thread's share) and O, then the warps' states
 // folded into c.part. `uniform`: every key of the split weighs 1 and only
 // V is read. Returns whether the split holds a valid key.
-template <typename T, int HD>
-__device__ bool run_pass(const Ctx<T, HD>& c, bool uniform) {
+template <typename T, int HD, bool PAGED>
+__device__ bool run_pass(const Ctx<T, HD, PAGED>& c, bool uniform) {
   using C = Cfg<T, HD>;
   constexpr int STAGES = C::STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -437,12 +470,12 @@ __device__ bool run_pass(const Ctx<T, HD>& c, bool uniform) {
   return any;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const uint8_t* __restrict__ valid,
-              T* __restrict__ out, int S, int H, int KVH, int chunk,
-              float scale_log2) {
+              const long long* __restrict__ table, T* __restrict__ out,
+              int S, int H, int KVH, int chunk, int ps, float scale_log2) {
   using C = Cfg<T, HD>;
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -452,7 +485,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y / ngroups, grp = blockIdx.y % ngroups;
   const int h0 = kvh * G + grp * GM, ng = min(GM, G - grp * GM);
 
-  Ctx<T, HD> c;
+  Ctx<T, HD, PAGED> c;
   c.ring = smem;
   c.sq = smem + C::SCRATCH;
   c.part = reinterpret_cast<float*>(smem) + NW * C::WSTATE;
@@ -463,12 +496,30 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   c.flag = c.list + WT;   // [0] the split holds a valid key, [1] [2]
                           // build_window's list length and hit
   c.kstride = (size_t)KVH * HD;
-  c.k = k + (size_t)b * S * c.kstride + (size_t)kvh * HD;
-  c.v = v + (size_t)b * S * c.kstride + (size_t)kvh * HD;
   c.valid = valid + (size_t)b * S;
   c.lo = split * chunk;
   c.hi = min(S, c.lo + chunk);
   c.scale_log2 = scale_log2;
+  if constexpr (PAGED) {
+    // the split's page ids past the block's other pieces; build_window's
+    // barrier orders these writes before the first tile's copies
+    c.k = k + (size_t)kvh * HD;
+    c.v = v + (size_t)kvh * HD;
+    c.ps = ps;
+    c.p0 = c.lo / ps;
+    c.ps_shift = 0;
+    while ((1 << c.ps_shift) < ps) ++c.ps_shift;
+    c.ps_magic = (unsigned)(((1ull << 32) * ((1ull << c.ps_shift) - ps)) /
+                                ps + 1);
+    int* pages = reinterpret_cast<int*>(smem + C::SMEM);
+    const long long* row = table + (size_t)b * (S / ps);
+    for (int i = threadIdx.x; i <= (c.hi - 1) / ps - c.p0; i += NT)
+      pages[i] = (int)row[c.p0 + i];
+    c.pages = pages;
+  } else {
+    c.k = k + (size_t)b * S * c.kstride + (size_t)kvh * HD;
+    c.v = v + (size_t)b * S * c.kstride + (size_t)kvh * HD;
+  }
 
   // the group's query rows, zeros past it (the oldest copy group)
   for (int i = threadIdx.x; i < GM * C::CHUNKS; i += NT) {
@@ -532,20 +583,28 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cluster.sync();                 // no block leaves while others read it
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* out, int B, int S, int H, int KVH, int nsplit, int chunk,
-           float scale_log2, cudaStream_t st) {
+           const void* table, void* out, int B, int S, int H, int KVH,
+           int ps, int nsplit, int chunk, float scale_log2,
+           cudaStream_t st) {
   using C = Cfg<T, HD>;
+  // the paged mode's page ids come past the other pieces, at most
+  // chunk / ps + 2 of them for a split of chunk keys; as that varies, the
+  // paged mode is allowed the most a block may have, and a launch past
+  // that is refused
+  const int smem = C::SMEM + (PAGED ? (chunk / ps + 2) * 4 : 0);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      decode_kernel<T, HD, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      PAGED ? MAX_SMEM : C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int ngroups = (H / KVH + GM - 1) / GM;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nsplit, KVH * ngroups, B);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -555,24 +614,50 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, HD>, static_cast<const T*>(q),
+      &cfg, decode_kernel<T, HD, PAGED>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), S, H, KVH,
-      chunk, scale_log2);
+      static_cast<const uint8_t*>(valid),
+      static_cast<const long long*>(table), static_cast<T*>(out), S, H, KVH,
+      chunk, ps, scale_log2);
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* valid,
-             void* out, int B, int S, int H, int KVH, int hd, int nsplit,
-             int chunk, float scale_log2, cudaStream_t st) {
+             const void* table, void* out, int B, int S, int H, int KVH,
+             int hd, int ps, int nsplit, int chunk, float scale_log2,
+             cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, valid, out, B, S, H, KVH, nsplit, chunk, scale_log2, st);
-    case 64: return launch<T, 64>(q, k, v, valid, out, B, S, H, KVH, nsplit, chunk, scale_log2, st);
-    case 128: return launch<T, 128>(q, k, v, valid, out, B, S, H, KVH, nsplit, chunk, scale_log2, st);
-    case 160: return launch<T, 160>(q, k, v, valid, out, B, S, H, KVH, nsplit, chunk, scale_log2, st);
-    case 256: return launch<T, 256>(q, k, v, valid, out, B, S, H, KVH, nsplit, chunk, scale_log2, st);
+    case 32: return launch<T, 32, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, ps, nsplit, chunk, scale_log2, st);
+    case 64: return launch<T, 64, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, ps, nsplit, chunk, scale_log2, st);
+    case 128: return launch<T, 128, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, ps, nsplit, chunk, scale_log2, st);
+    case 160: return launch<T, 160, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, ps, nsplit, chunk, scale_log2, st);
+    case 256: return launch<T, 256, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, ps, nsplit, chunk, scale_log2, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Both C entries: the checks on the split, then the launch by dtype.
+template <bool PAGED>
+int entry(const void* q, const void* k, const void* v, const void* valid,
+          const void* table, void* out, int B, int S, int H, int KVH, int hd,
+          int ps, int nsplit, int chunk, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH || nsplit <= 0 ||
+      nsplit > MAX_SPLITS || chunk <= 0 ||
+      (long long)(nsplit - 1) * chunk >= S ||
+      (long long)nsplit * chunk < S || (PAGED && (ps <= 0 || S % ps)))
+    return (int)cudaErrorInvalidValue;
+  const float scale_log2 =
+      (float)(1.4426950408889634 / sqrt((double)hd));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (dtype == 0)
+    err = dispatch<float, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, hd, ps, nsplit, chunk, scale_log2, st);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16, PAGED>(q, k, v, valid, table, out, B, S, H, KVH, hd, ps, nsplit, chunk, scale_log2, st);
+  else
+    err = (int)cudaErrorInvalidValue;
+  if (err) return err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -587,22 +672,21 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* valid, void* out, int B, int S,
                                 int H, int KVH, int hd, int nsplit,
                                 int chunk, int dtype, void* stream) {
-  using namespace repro_torch;
-  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH || nsplit <= 0 ||
-      nsplit > MAX_SPLITS || chunk <= 0 ||
-      (long long)(nsplit - 1) * chunk >= S ||
-      (long long)nsplit * chunk < S)
-    return (int)cudaErrorInvalidValue;
-  const float scale_log2 =
-      (float)(1.4426950408889634 / sqrt((double)hd));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, valid, out, B, S, H, KVH, hd, nsplit, chunk, scale_log2, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, valid, out, B, S, H, KVH, hd, nsplit, chunk, scale_log2, st);
-  else
-    err = (int)cudaErrorInvalidValue;
-  if (err) return err;
-  return (int)cudaGetLastError();
+  return repro_torch::entry<false>(q, k, v, valid, nullptr, out, B, S, H,
+                                   KVH, hd, 0, nsplit, chunk, dtype, stream);
+}
+
+// The same over one layer's page pools k, v (num_pages, page_size, KVH,
+// hd): key j of row b at page table[b, j / page_size] (int64, B rows of
+// S / page_size pages), row j % page_size. Every id in a row's table must
+// name a page of the pool, masked keys' too.
+extern "C" int paged_decode_attention(const void* q, const void* k,
+                                      const void* v, const void* table,
+                                      const void* valid, void* out, int B,
+                                      int S, int H, int KVH, int hd,
+                                      int page_size, int nsplit, int chunk,
+                                      int dtype, void* stream) {
+  return repro_torch::entry<true>(q, k, v, valid, table, out, B, S, H, KVH,
+                                  hd, page_size, nsplit, chunk, dtype,
+                                  stream);
 }

@@ -9,8 +9,12 @@ Two dispatch paths share the model:
   the prompt KV lands in block-allocated pages and the first response
   token is sampled from the prefill logits.
 * **decode** — one step advances *every* occupied slot by one token
-  against its paged KV (gather pages -> ``decode_step``, whose attention
-  is ``kernels/decode_attention`` -> scatter the one written row back).
+  against its paged KV: ``decode_step`` over the page pool and the round's
+  page table, each layer writing its new K/V row into its page and
+  ``kernels/decode_attention``'s paged mode reading the keys through the
+  table. A mesh engine, or a pool whose dtype is not the compute dtype,
+  gathers each slot's pages into a dense view instead, decodes on the
+  views and scatters the one written row back.
 
 The moment a sequence finishes it is emitted (per-sample handoff — no
 batch barrier), its pages and slot free, and the next waiting prompt is
@@ -24,9 +28,10 @@ phases as spans: ``cb.generate`` around a call, ``cb.wait`` for the
 engine's lock, ``cb.admit`` with one ``cb.prefill`` a bucket (children
 ``forward``, ``sample``, ``sync``, ``write``), and ``cb.round`` a decode
 round (children ``prepare``, ``forward``, ``sample``, ``sync``,
-``retire``). ``rollout_engine_wait_seconds_total`` and
-``rollout_tokens_total`` count the lock's wait and the tokens appended
-always.
+``retire``). ``rollout_engine_wait_seconds_total``,
+``rollout_tokens_total`` and ``rollout_kv_gather_bytes_total`` count the
+lock's wait, the tokens appended and the bytes of K/V views the decode
+rounds gathered (0 on the paged route) always.
 
 Sampling is counter-keyed per sequence — token ``i`` of sequence ``uid``
 is drawn with the key ``fold_seed(seed, uid, i)`` (see
@@ -52,6 +57,8 @@ from repro_torch.engines.continuous_batching.paged_kv import (
 from repro_torch.engines.continuous_batching.scheduler import (Sequence,
                                                                SlotScheduler)
 from repro_torch.models import decode_step, forward
+from repro_torch.models.attention import paged_cache
+from repro_torch.models.layers import dtype_of
 from repro_torch.rl.sampling import _next_pow2, categorical, fold_seed
 
 SUPPORTED_ARCHS = ("dense", "moe")
@@ -84,19 +91,38 @@ def _prefill_forward(params, cfg, toks, lens):
     return k, v, last
 
 
+def _reads_pages(k_pool, cfg, mesh) -> bool:
+    """Whether a decode round reads the pool through the page table: not
+    on a mesh (the sharded combine splits a dense view's keys), nor where
+    the pool's dtype is not the compute dtype (the kernel reads one)."""
+    return mesh is None and k_pool.dtype == dtype_of(cfg.compute_dtype)
+
+
 @torch.no_grad()
 def _decode_round_forward(params, cfg, k_pool, v_pool, page_table, pos_t,
                           tok, *, page_size: int, mesh=None):
     """One continuous-batching decode step over every slot, to its logits.
 
-    Gathers each slot's pages into a dense per-slot view, runs the
-    one-token ``decode_step`` (which writes the new KV row at ``pos``
-    into the view) and scatters that single row back into the page pool
-    in place. Idle slots carry page-table rows of zeros and ``pos`` 0, so
-    their dummy rows all land on row 0 of the reserved scratch page 0:
-    several writes to one place, harmless, since no live sequence reads
-    it. ``page_table``, ``pos_t`` and ``tok`` are on the device; returns
-    logits (B, V)."""
+    Paged route: ``decode_step`` over the pools and the round's page table;
+    each layer writes its new KV row at ``pos`` into the slot's page and
+    its attention reads every key through the table. Idle slots carry
+    page-table rows of zeros and ``pos`` 0, so their dummy rows all land on
+    row 0 of the reserved scratch page 0: several writes to one place,
+    harmless, since no live sequence reads it.
+
+    Gather route, where the paged one cannot go (``_reads_pages``):
+    gathers each slot's pages into a dense per-slot view, runs the
+    one-token ``decode_step`` (which writes the new KV row at ``pos`` into
+    the view) and scatters that single row back into the page pool in
+    place, idle slots' onto page 0 as above.
+
+    ``page_table``, ``pos_t`` and ``tok`` are on the device; returns
+    (logits (B, V), bytes of the K/V views gathered)."""
+    if _reads_pages(k_pool, cfg, mesh):
+        logits, _ = decode_step(
+            params, cfg, paged_cache(k_pool, v_pool, page_table, pos_t), tok,
+            pos_t)
+        return logits, 0
     L, _, ps, KVH, hd = k_pool.shape
     B, PPS = page_table.shape
     S = PPS * ps
@@ -111,7 +137,7 @@ def _decode_round_forward(params, cfg, k_pool, v_pool, page_table, pos_t,
     off = pos_t % page_size
     k_pool[:, phys, off] = new_cache["k"][:, bidx, pos_t]
     v_pool[:, phys, off] = new_cache["v"][:, bidx, pos_t]
-    return logits
+    return logits, 2 * k_view.numel() * k_view.element_size()
 
 
 class ContinuousBatchingEngine:
@@ -202,6 +228,10 @@ class ContinuousBatchingEngine:
         self._c_tokens = m.counter(
             "rollout_tokens_total",
             "tokens appended to sequences (prefill and decode)").labels(
+                engine="cb")
+        self._c_gather = m.counter(
+            "rollout_kv_gather_bytes_total",
+            "bytes of per-slot K/V views decode rounds gathered").labels(
                 engine="cb")
 
     # ------------------------------------------------------------------ #
@@ -395,7 +425,7 @@ class ContinuousBatchingEngine:
                     self._retire(finished, paused, emit)
                 return
             with span("forward"):
-                logits = _decode_round_forward(
+                logits, gathered = _decode_round_forward(
                     params, self.cfg, self.pool.k, self.pool.v, page_table,
                     pos_t, tok, page_size=self.page_size, mesh=self.mesh)
             with span("sample"):
@@ -408,6 +438,7 @@ class ContinuousBatchingEngine:
                     self.pool.kv_len[q.uid] = q.length
                     self._append_token(q, int(nxt[s]), float(lp[s]))
                 self._c_tokens.inc(len(stepping))
+                self._c_gather.inc(gathered)
                 self._h_decode.observe(time.monotonic() - t0)
                 self._retire(finished, paused, emit)
 

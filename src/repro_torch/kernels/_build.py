@@ -36,7 +36,11 @@ SIGNATURES = {
         # q, k, v, valid, out, B, S, H, KVH, hd, nsplit, chunk, dtype,
         # stream
         "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P]},
+                             _I, _P],
+        # q, k pool, v pool, page table, valid, out, B, S, H, KVH, hd,
+        # page_size, nsplit, chunk, dtype, stream
+        "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P]},
     "flash_attention": {
         # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, dtype, stream
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

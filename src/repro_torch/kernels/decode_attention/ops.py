@@ -1,5 +1,8 @@
-"""Wrapper: the CUDA kernel (``csrc/decode_attention.cu``) for CUDA
-tensors, the plain version for CPU tensors, nothing else."""
+"""Wrappers: the CUDA kernel (``csrc/decode_attention.cu``) for CUDA
+tensors, the plain version for CPU tensors, nothing else.
+``decode_attention`` reads dense per-row caches; ``paged_decode_attention``
+reads one layer's page pool through a page table (the continuous engine's
+decode round), in the kernel's paged mode."""
 import functools
 
 import torch
@@ -68,3 +71,53 @@ def decode_attention(q, k_cache, v_cache, valid):
 
 
 decode_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, valid):
+    """q: (B,1,H,hd); k/v_pool: one layer's page pools (num_pages,
+    page_size, KVH, hd); page_table: (B, P) int64, key j of row b at row
+    j % page_size of page ``page_table[b, j // page_size]``; valid:
+    (B, P * page_size) bool.
+
+    ``decode_attention`` over the keys the table maps, read in place: the
+    kernel's paged mode, at the splits ``decode_attention`` takes for
+    S = P * page_size, gives bit for bit what ``decode_attention`` gives on
+    the gathered (B, S, KVH, hd) views, and counts its launches on
+    ``decode_attention.launches``. On the CPU it gathers the views and runs
+    the plain version. Every id in the table must name a page of the pool,
+    a masked key's too."""
+    _, ps, KVH, hd = k_pool.shape
+    B, P = page_table.shape
+    S = P * ps
+    if _build.on_cpu(q, k_pool, v_pool, page_table, valid):
+        return decode_attention_ref(
+            q, k_pool[page_table].reshape(B, S, KVH, hd),
+            v_pool[page_table].reshape(B, S, KVH, hd), valid)
+    args = (q, k_pool, v_pool, page_table, valid)
+    _build.require_no_grad("paged_decode_attention", *args)
+    _build.check_cuda_inputs("paged_decode_attention", *args)
+    H = q.shape[2]
+    if (q.shape != (B, 1, H, hd) or v_pool.shape != k_pool.shape
+            or valid.shape != (B, S) or H % KVH
+            or hd not in _build.HEAD_DIMS):
+        raise ValueError(
+            f"paged_decode_attention: unsupported shapes q={tuple(q.shape)}"
+            f" k_pool={tuple(k_pool.shape)} v_pool={tuple(v_pool.shape)} "
+            f"page_table={tuple(page_table.shape)} "
+            f"valid={tuple(valid.shape)} (hd in {_build.HEAD_DIMS})")
+    if (q.dtype not in _build.DTYPE_CODES or k_pool.dtype != q.dtype
+            or v_pool.dtype != q.dtype or valid.dtype != torch.bool
+            or page_table.dtype != torch.int64):
+        raise ValueError("paged_decode_attention: q/k/v must share float32 "
+                         "or bfloat16, valid must be bool and page_table "
+                         "int64")
+    nsplit, chunk = _splits(_num_sms(q.device.index), B, S, H, KVH)
+    out = torch.empty_like(q)
+    err = _build.kernel("paged_decode_attention")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H,
+        KVH, hd, ps, nsplit, chunk, _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_decode_attention", err)
+    _build.count_launch(decode_attention)
+    return out

@@ -22,7 +22,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _routes
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rotary, dense, init_dense
 
@@ -144,11 +145,29 @@ def write_slots(cache, slot, new):
     cache[torch.arange(cache.shape[0], device=cache.device), slot] = new
 
 
+def paged_cache(k_pool, v_pool, page_table, pos):
+    """A decode cache that ``attend_decode`` reads through a page table:
+    k/v_pool the page pools (..., num_pages, page_size, nkv, hd), one
+    layer's or every layer's; page_table (B, P), row b's key j at row
+    j % page_size of page ``page_table[b, j // page_size]``
+    (S_cache = P * page_size); pos (B,). What every layer shares is made
+    here once: ``rows``, the pool row (page * page_size + offset) that takes
+    each batch row's new K/V, and ``valid``, the keys at or before ``pos``.
+    A row's pages must hold ``pos``."""
+    ps = k_pool.shape[-3]
+    B, P = page_table.shape
+    page = page_table[torch.arange(B, device=pos.device), pos // ps]
+    kpos = torch.arange(P * ps, device=pos.device)[None, :]
+    return {"k": k_pool, "v": v_pool, "page_table": page_table,
+            "rows": page * ps + pos % ps, "valid": kpos <= pos[:, None]}
+
+
 def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
                   mesh=None):
     """One-token decode.
 
-    x: (B, 1, d); layer_cache: {"k","v"} of (B, S_cache, nkv, hd);
+    x: (B, 1, d); layer_cache: {"k","v"} of (B, S_cache, nkv, hd), or one
+    layer of a ``paged_cache`` (the continuous engine's decode round);
     pos: (B,) current absolute position of the new token.
     ring=True → sliding-window ring buffer (cache slot = pos % S_cache).
     write=False → read-only attention over the full provided cache (used for
@@ -159,7 +178,11 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
     routes it.
 
     The new K/V row is written into ``layer_cache`` in place (the reference
-    rebuilt the arrays). Returns (out (B,1,d), layer_cache).
+    rebuilt the arrays): a paged cache's at its pool row ``rows``, where
+    the attention then reads every key through the table
+    (``paged_decode_attention``), no per-row view gathered. A paged cache
+    is in the compute dtype and takes neither ``ring``, ``mesh`` nor
+    ``write=False``. Returns (out (B,1,d), layer_cache).
     """
     B = x.shape[0]
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -168,6 +191,10 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
 
     k_cache, v_cache = layer_cache["k"], layer_cache["v"]
     S = k_cache.shape[1]
+    paged = "page_table" in layer_cache
+    if paged and (ring or mesh is not None or not write):
+        raise ValueError("attend_decode: a paged cache takes neither ring, "
+                         "mesh nor write=False")
 
     if write:
         q = apply_rotary(q, pos[:, None], cfg.rope_theta)
@@ -175,19 +202,27 @@ def attend_decode(p, x, layer_cache, pos, cfg, *, ring=False, write=True,
         v_new = _split_heads(dense(p["wv"], x, cd), nkv, hd)
         k_new = apply_rotary(k_new, pos[:, None], cfg.rope_theta)
 
-        # torch raises on an out-of-range index where JAX clamps: clamp
-        # explicitly, as the reference does.
-        slot = pos % S if ring else torch.clamp(pos, max=S - 1)
-        write_slots(k_cache, slot, k_new[:, 0].to(k_cache.dtype))
-        write_slots(v_cache, slot, v_new[:, 0].to(v_cache.dtype))
-
-        kpos = torch.arange(S, device=x.device)[None, :]
-        n_filled = torch.clamp(pos + 1, max=S)[:, None]
-        valid = (kpos < n_filled) if ring else (kpos <= pos[:, None])
+        if paged:
+            rows = layer_cache["rows"]
+            k_cache.view(-1, nkv, hd)[rows] = k_new[:, 0]
+            v_cache.view(-1, nkv, hd)[rows] = v_new[:, 0]
+            valid = layer_cache["valid"]
+        else:
+            # torch raises on an out-of-range index where JAX clamps:
+            # clamp explicitly, as the reference does.
+            slot = pos % S if ring else torch.clamp(pos, max=S - 1)
+            write_slots(k_cache, slot, k_new[:, 0].to(k_cache.dtype))
+            write_slots(v_cache, slot, v_new[:, 0].to(v_cache.dtype))
+            kpos = torch.arange(S, device=x.device)[None, :]
+            n_filled = torch.clamp(pos + 1, max=S)[:, None]
+            valid = (kpos < n_filled) if ring else (kpos <= pos[:, None])
     else:
         valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
 
-    if mesh is not None:
+    if paged:
+        out = paged_decode_attention(q.contiguous(), k_cache, v_cache,
+                                     layer_cache["page_table"], valid)
+    elif mesh is not None:
         from repro_torch.distributed.flash_decode import \
             sharded_decode_attention
         out = sharded_decode_attention(q, k_cache.to(cd), v_cache.to(cd),

@@ -61,6 +61,14 @@ def _layer(tree, i):
     return tree[i]
 
 
+def _cache_layer(cache, i):
+    """Layer ``i`` of a decode cache; a paged cache's table, rows and mask
+    are the round's, not a layer's, so every layer gets them whole."""
+    if "page_table" not in cache:
+        return _layer(cache, i)
+    return {**cache, "k": cache["k"][i], "v": cache["v"][i]}
+
+
 # ---------------------------------------------------------------------------
 # Model init
 # ---------------------------------------------------------------------------
@@ -334,7 +342,9 @@ def init_cache(cfg, batch, length, dtype=torch.bfloat16, device=None):
 
 def decode_lm(params, cfg, cache, token, pos, *, ring=False, mesh=None):
     """token: (B,) int; pos: (B,) absolute positions.
-    Returns (logits (B, V), cache); the cache is updated in place.
+    Returns (logits (B, V), cache); the cache is updated in place. A GQA
+    trunk's cache may be paged: ``attention.paged_cache`` over the page
+    pools of every layer (L, num_pages, page_size, KVH, hd).
 
     ``mesh`` routes the GQA attention of the dense, moe and vlm trunks
     through ``distributed/flash_decode``'s sharded combine (no
@@ -371,8 +381,9 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False, mesh=None):
                 y, _ = mla_mod.mla_decode(p["attn"], h, _layer(cache, i),
                                           pos, cfg, ring=ring)
             else:
-                y, _ = attn.attend_decode(p["attn"], h, _layer(cache, i),
-                                          pos, cfg, ring=ring, mesh=mesh)
+                y, _ = attn.attend_decode(p["attn"], h,
+                                          _cache_layer(cache, i), pos, cfg,
+                                          ring=ring, mesh=mesh)
             x = x + y
             y, _ = _ffn(p["ffn"], norm(p["ln2"], x), cfg, ffn_kind)
             x = x + y

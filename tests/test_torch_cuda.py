@@ -6,6 +6,7 @@ neither JAX nor the reference, so on a machine with a card and no JAX it
 runs alone: ``PYTHONPATH=src python -m pytest --noconftest
 tests/test_torch_cuda.py``."""
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_ref)
+                                                  decode_attention_ref,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.fused_rl_loss import (fused_rl_loss,
@@ -207,6 +209,77 @@ def test_decode_kernel_on_a_full_ring_at_hd256(cuda_device, dtype):
     ref = decode_attention_ref(q, k, v, valid)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _paged_inputs(gen, rng, B, S, KV, hd, ps, lens, dtype, device):
+    """Pools and a page table as the continuous engine lays them: each row
+    owns distinct, shuffled pages for its ``lens`` keys (a row of length 1
+    is an idle slot: all of its table on the reserved page 0, one valid
+    key), page 0 past them; spare pages in the pool too."""
+    need = [0 if n == 1 else -(-n // ps) for n in lens]
+    NP = 1 + sum(need) + 7
+    ids = rng.permutation(np.arange(1, NP))
+    table = np.zeros((B, S // ps), np.int64)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = ids[at:at + n]
+        at += n
+    k_pool, v_pool = (_randn(gen, (NP, ps, KV, hd), dtype, device)
+                      for _ in range(2))
+    valid = np.arange(S)[None, :] < np.asarray(lens)[:, None]
+    return (k_pool, v_pool, torch.from_numpy(table).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (32, 8, 160),
+                                     (16, 1, 256)])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_equals_dense_on_the_gathered_view(
+        cuda_device, H, KV, hd, ps, dtype):
+    """The paged mode reads each row's keys through its page table and
+    gives bit for bit what the dense mode gives on the gathered views:
+    rows of 1 key (an idle slot on page 0), 63/64/65 (a tile's edges), a
+    split's edges, 2304 (every key) and one drawn at random, over 2304
+    keys; one launch a call, named ``decode_kernel`` in the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention.ops import _num_sms, _splits
+    B, S = 8, 2304
+    chunk = _splits(_num_sms(cuda_device.index), B, S, H, KV)[1]
+    rng = np.random.default_rng(hd + ps)
+    lens = [1, 63, 64, 65, chunk, chunk + 1, S, int(rng.integers(2, S))]
+    gen = torch.Generator(device=cuda_device).manual_seed(hd * ps)
+    q = _randn(gen, (B, 1, H, hd), dtype, cuda_device)
+    k_pool, v_pool, table, valid = _paged_inputs(
+        gen, rng, B, S, KV, hd, ps, lens, dtype, cuda_device)
+    n = decode_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = paged_decode_attention(q, k_pool, v_pool, table, valid)
+        torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    names = [e.key for e in prof.key_averages()]
+    assert any(re.search(r"\bdecode_kernel\b", k) for k in names), names
+    k, v = (p[table].reshape(B, S, KV, hd) for p in (k_pool, v_pool))
+    assert torch.equal(out, decode_attention(q, k, v, valid))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_at_the_rollout_shape(cuda_device, dtype):
+    """The rollout cell's decode: 256 slots of 2304 keys in pages of 8,
+    Qwen2.5-7B's 28/4 heads at hd 128 (one split a row), ragged rows and
+    idle slots; bit for bit the dense mode on the gathered views."""
+    B, S, H, KV, hd, ps = 256, 2304, 28, 4, 128, 8
+    rng = np.random.default_rng(256)
+    lens = [1 if b % 9 == 0 else int(rng.integers(2, S + 1))
+            for b in range(B)]
+    gen = torch.Generator(device=cuda_device).manual_seed(256)
+    q = _randn(gen, (B, 1, H, hd), dtype, cuda_device)
+    k_pool, v_pool, table, valid = _paged_inputs(
+        gen, rng, B, S, KV, hd, ps, lens, dtype, cuda_device)
+    out = paged_decode_attention(q, k_pool, v_pool, table, valid)
+    k, v = (p[table].reshape(B, S, KV, hd) for p in (k_pool, v_pool))
+    assert torch.equal(out, decode_attention(q, k, v, valid))
 
 
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
@@ -882,6 +955,51 @@ def test_embedding_gather_backward_on_card(cuda_device):
     plain = grad(lambda t: t[tokens])
     assert torch.equal(a, b)
     assert float((a - plain).abs().max()) <= 1e-6 * float(plain.abs().max())
+
+
+def test_engine_paged_rounds_on_card_equal_the_gather_rounds(cuda_device,
+                                                            monkeypatch):
+    """The reduced Qwen2.5 in bf16 through the continuous engine on the
+    card: the decode rounds read the bf16 pool through the page table
+    (the kernel's paged mode), and forced onto the gather route (per-slot
+    views, the dense mode, the row scattered back) give the same tokens
+    and logprobs bit for bit: ragged prompts, chunked continuations parked
+    and resumed, one preemption (9 pages)."""
+    from repro_torch.core.obs import MetricsRegistry
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+    from repro_torch.engines.continuous_batching import engine as cb
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("qwen2_5_7b").reduced(),
+                              vocab_size=ByteTokenizer.vocab_size)
+    params = init_params(0, cfg, device=cuda_device)
+    prompts = [[5, 6, 7], [8, 9, 10, 11, 12], [3, 4], [250, 251, 252, 253]]
+
+    def run():
+        eng = ContinuousBatchingEngine(
+            cfg, num_slots=2, page_size=4, max_len=32, num_pages=9,
+            max_new_tokens=8, eos_id=-1, seed=3, device=cuda_device,
+            metrics=MetricsRegistry())
+        items = [eng.make_sequence(p, chunk=3) for p in prompts]
+        done = []
+        n = decode_attention.launches
+        while items:
+            fin, paused = eng.generate(params, items)
+            done += fin
+            items = [eng.resume(q, chunk=3) for q in paused]
+        assert decode_attention.launches > n
+        snap = eng._registry.snapshot()
+        assert snap["rollout_preemptions_total"]["values"][0]["value"] > 0
+        gathered = snap["rollout_kv_gather_bytes_total"]["values"][0]
+        return {q.uid: (q.tokens, q.logprobs) for q in done}, \
+            gathered["value"]
+
+    paged, none = run()
+    monkeypatch.setattr(cb, "_reads_pages", lambda *a: False)
+    gathered, some = run()
+    assert paged == gathered and len(paged) == len(prompts)
+    assert none == 0 and some > 0
 
 
 def _moe_cfg(top_k=None):

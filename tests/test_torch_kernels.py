@@ -16,7 +16,8 @@ from repro.kernels.decode_attention.decode_attention import \
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_kernel
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_ref)
+                                                  decode_attention_ref,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 
@@ -153,6 +154,48 @@ def test_decode_plain_matches_jax_kernel(B, S, H, KV, hd, dtype):
                                   block_k=min(512, S), interpret=True)
     out = decode_attention(qt, kt, vt, torch.from_numpy(valid))
     assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+def _page_table(rng, B, P, ps, fill):
+    """Each row's pages as the continuous engine lays them: distinct
+    shuffled ids for the pages its ``fill`` keys need, the reserved page 0
+    past them. Returns (table (B, P) int64, pages in the pool)."""
+    need = -(-fill // ps)
+    ids = rng.permutation(np.arange(1, 1 + need.sum()))
+    table = np.zeros((B, P), np.int64)
+    for b, row in enumerate(np.split(ids, np.cumsum(need)[:-1])):
+        table[b, :len(row)] = row
+    return table, 1 + int(need.sum())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,ps", [
+    (3, 96, 4, 2, 64, 8), (2, 160, 7, 1, 128, 16), (3, 100, 32, 8, 160, 4)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_decode_plain_matches_jax_kernel_on_the_pages(B, S, H, KV, hd,
+                                                            ps, dtype):
+    """On the CPU the paged entry gathers each row's pages through its
+    table and runs the plain version: bit for bit ``decode_attention``
+    on the gathered views, within the bar of the reference's kernel on
+    them, and no launch counted."""
+    rng = np.random.default_rng(S * 19 + hd)
+    fill = rng.integers(1, S + 1, size=B)
+    table, NP = _page_table(rng, B, S // ps, ps, fill)
+    x = [rng.standard_normal(s).astype(np.float32)
+         for s in ((B, 1, H, hd), (NP, ps, KV, hd), (NP, ps, KV, hd))]
+    q, k_pool, v_pool = (_pair(a, dtype)[1] for a in x)
+    k, v = (a[table].reshape(B, S, KV, hd) for a in x[1:])
+    valid = np.arange(S)[None, :] < fill[:, None]
+    n = decode_attention.launches
+    out = paged_decode_attention(q, k_pool, v_pool, torch.from_numpy(table),
+                                 torch.from_numpy(valid))
+    assert decode_attention.launches == n
+    (kj, kt), (vj, vt) = _pair(k, dtype), _pair(v, dtype)
+    assert torch.equal(out, decode_attention(q, kt, vt,
+                                             torch.from_numpy(valid)))
+    ref = decode_attention_kernel(_pair(x[0], dtype)[0], kj, vj,
+                                  jnp.asarray(valid), block_k=min(512, S),
+                                  interpret=True)
     _close(out, ref, DTYPES[dtype][2])
 
 

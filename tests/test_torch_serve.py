@@ -242,6 +242,38 @@ def test_preempted_parked_pages_refill_deterministically():
     assert snap["rollout_preemptions_total"]["values"][0]["value"] > 0
 
 
+def test_paged_rounds_equal_the_gather_rounds(monkeypatch):
+    """The decode rounds read the pool through the page table; forced
+    onto the gather route (per-slot views, the row scattered back) they
+    give the same tokens and logprobs bit for bit: ragged prompts, chunked
+    continuations parked and resumed, one preemption (9 pages)."""
+    from repro_torch.engines.continuous_batching import engine as cb
+
+    _, _, cfg, params = _setup()
+    prompts = [[5, 6, 7], [8, 9, 10, 11, 12], [3, 4], [250, 251, 252, 253]]
+
+    def run():
+        eng = _engine(cfg, num_pages=9, max_new_tokens=8, seed=3,
+                      eos_id=-1, metrics=MetricsRegistry())
+        items = [eng.make_sequence(p, chunk=3) for p in prompts]
+        done = []
+        while items:
+            fin, paused = eng.generate(params, items)
+            done += fin
+            items = [eng.resume(q, chunk=3) for q in paused]
+        snap = eng._registry.snapshot()
+        assert snap["rollout_preemptions_total"]["values"][0]["value"] > 0
+        gathered = snap["rollout_kv_gather_bytes_total"]["values"][0]
+        return {q.uid: (q.tokens, q.logprobs) for q in done}, \
+            gathered["value"]
+
+    paged, none = run()
+    monkeypatch.setattr(cb, "_reads_pages", lambda *a: False)
+    gathered, some = run()
+    assert paged == gathered and len(paged) == len(prompts)
+    assert none == 0 and some > 0
+
+
 # ---------------------------------------------------------------------------
 # serve entry point
 # ---------------------------------------------------------------------------

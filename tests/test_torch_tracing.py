@@ -274,6 +274,19 @@ def test_tokens_and_cast_bytes_from_shapes(params):
         assert _value("model_cast_bytes_total") == 4 * 6 * weights
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_gather_bytes_by_route(params, dtype):
+    """A pool in the compute dtype (bf16) is read through the page table:
+    no K/V view gathered. An fp32 pool under bf16 products takes the
+    gather route: two (layers, slots, max_len, KV heads, hd) views of fp32
+    a round, over the two decode rounds of three new tokens."""
+    with scoped():
+        _generate(_engine(dtype=dtype), params, max_new=3)
+        views = 2 * CFG.num_layers * 4 * 48 * CFG.num_kv_heads * CFG.head_dim
+        want = 0 if dtype == torch.bfloat16 else 2 * views * 4
+        assert _value("rollout_kv_gather_bytes_total", engine="cb") == want
+
+
 def test_engine_wait_counts_the_lock_wait_of_a_second_caller(params):
     with scoped(), tracing.scoped() as log:
         eng = _engine()
