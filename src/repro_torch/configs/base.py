@@ -77,6 +77,18 @@ class ModelConfig:
     qk_rope_head_dim: int = 64
     qk_nope_head_dim: int = 128
     v_head_dim: int = 128
+    # DeepSeek-V2's published MLA (each off by default, as the reference
+    # computes it): RMSNorms on the q and kv latents; YaRN rotary on the
+    # rope dims (factor > 1), its correction range from beta_fast/slow at
+    # the original positions, and the softmax scale times
+    # mscale(factor, mscale_all_dim)^2 (cos and sin stay unscaled: the
+    # published mscale equals mscale_all_dim)
+    mla_latent_norm: bool = False
+    yarn_factor: float = 1.0
+    yarn_original_positions: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # MoE
     num_experts: int = 0
@@ -87,6 +99,14 @@ class ModelConfig:
     router_aux_coef: float = 0.01
     moe_device_limit: int = 0  # >0: route each token to <=M device groups
     moe_ep_degree: int = 16    # device groups for device-limited routing
+    # DeepSeek-V2's published gate and one chip's share of an expert
+    # layer (defaults: today's gate, every expert held, capacity drops)
+    moe_router_fp32: bool = False   # the gate's product in fp32
+    moe_norm_topk: bool = True      # renormalise the top-k weights
+    moe_routed_scale: float = 1.0   # routed_scaling_factor
+    moe_held_first: int = 0         # this layer holds experts
+    moe_held_experts: int = 0       # [first, first + held); 0 = all
+    moe_dropless: bool = False      # dispatch every pick (serving)
 
     # SSM (mamba-1)
     ssm_state: int = 16
@@ -142,6 +162,13 @@ class ModelConfig:
         """long_500k applicability: SSM/hybrid natively; dense via the
         sliding-window variant; enc-dec (whisper) skipped (448 positions)."""
         return self.arch_type != "audio"
+
+    @property
+    def held_experts(self) -> range:
+        """The routed experts an expert layer holds: all of them, or the
+        share ``moe_held_experts`` from ``moe_held_first``."""
+        n = self.moe_held_experts or self.num_experts
+        return range(self.moe_held_first, self.moe_held_first + n)
 
     @property
     def d_inner(self) -> int:

@@ -14,7 +14,15 @@ Two dispatch paths share the model:
   ``kernels/decode_attention``'s paged mode reading the keys through the
   table. A mesh engine, or a pool whose dtype is not the compute dtype,
   gathers each slot's pages into a dense view instead, decodes on the
-  views and scatters the one written row back.
+  views and scatters the one written row back. An MLA model (MiniCPM3,
+  DeepSeek-V2) keeps one latent pool (``paged_kv.py``): the prefill
+  writes each prompt's latents into its pages, and each layer of a
+  round writes its new latent row into its page, then gathers that
+  layer's rows through the table and attends over them (absorbed, plain
+  PyTorch; ``models/mla.py``), one layer at a time.
+
+A moe model is served dropless (``cfg.moe_dropless``): no pick drops, so
+a request's output does not depend on its batch mates.
 
 The moment a sequence finishes it is emitted (per-sample handoff — no
 batch barrier), its pages and slot free, and the next waiting prompt is
@@ -28,10 +36,18 @@ phases as spans: ``cb.generate`` around a call, ``cb.wait`` for the
 engine's lock, ``cb.admit`` with one ``cb.prefill`` a bucket (children
 ``forward``, ``sample``, ``sync``, ``write``), and ``cb.round`` a decode
 round (children ``prepare``, ``forward``, ``sample``, ``sync``,
-``retire``). ``rollout_engine_wait_seconds_total``,
+``retire``); inside a forward the model adds ``mla.attend`` and
+``moe.ffn`` spans, one a layer. ``rollout_engine_wait_seconds_total``,
 ``rollout_tokens_total`` and ``rollout_kv_gather_bytes_total`` count the
 lock's wait, the tokens appended and the bytes of K/V views the decode
-rounds gathered (0 on the paged route) always.
+rounds gathered (0 on the paged route; MLA's latent rows under
+``kind="latent"``) always, and by ``phase`` (prefill, decode)
+``rollout_model_tokens_total`` the live tokens through the trunk (no
+padding, no idle slot), ``rollout_attended_pairs_total`` their
+query-key pairs, and for a moe model ``moe_held_picks_total`` the picks
+routed to held experts and ``moe_expert_rows_total`` the rows the expert
+products computed, all layers: those two are counted on the device and
+read at the bucket's or the round's ``sync``.
 
 Sampling is counter-keyed per sequence — token ``i`` of sequence ``uid``
 is drawn with the key ``fold_seed(seed, uid, i)`` (see
@@ -40,6 +56,8 @@ or batch composition.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -57,8 +75,10 @@ from repro_torch.engines.continuous_batching.paged_kv import (
 from repro_torch.engines.continuous_batching.scheduler import (Sequence,
                                                                SlotScheduler)
 from repro_torch.models import decode_step, forward
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import paged_cache
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.mla import paged_latent_cache
 from repro_torch.rl.sampling import _next_pow2, categorical, fold_seed
 
 SUPPORTED_ARCHS = ("dense", "moe")
@@ -73,22 +93,29 @@ def _sample(logits, seed, uids, positions, temperature):
     return nxt, logp.gather(1, nxt[:, None])[:, 0]
 
 
+def _layers(ts):
+    """Per-stack cache rows stacked over all layers in order."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
 @torch.no_grad()
 def _prefill_forward(params, cfg, toks, lens):
     """Bucketed prefill: one full forward over right-padded prompts
     yields KV for every prompt position and the logits at each row's last
-    prompt position. ``lens`` is a host list. Returns
-    (k (L,B,S,KVH,hd), v, last logits (B, V))."""
+    prompt position. ``lens`` is a host list. Returns (the pool rows:
+    {"k", "v"} (L,B,S,KVH,hd) each, or MLA's {"latent"} (L,B,S,r+dr);
+    the last logits (B, V))."""
     logits, _, cache = forward(params, cfg, {"tokens": toks},
                                return_cache=True)
     rows = torch.arange(len(lens), device=toks.device)
     last = logits[rows, torch.as_tensor(lens, device=toks.device) - 1]
-    if "dense_kv" in cache:            # moe: first_dense_layers prepended
-        k = torch.cat([cache["dense_kv"]["k"], cache["kv"]["k"]])
-        v = torch.cat([cache["dense_kv"]["v"], cache["kv"]["v"]])
-    else:
-        k, v = cache["kv"]["k"], cache["kv"]["v"]
-    return k, v, last
+    # moe: first_dense_layers prepended
+    stacks = [cache[k] for k in ("dense_kv", "kv") if k in cache]
+    if cfg.attention == "mla":
+        return {"latent": _layers([torch.cat([c["c_kv"], c["k_rope"]], -1)
+                                   for c in stacks])}, last
+    return {"k": _layers([c["k"] for c in stacks]),
+            "v": _layers([c["v"] for c in stacks])}, last
 
 
 def _reads_pages(k_pool, cfg, mesh) -> bool:
@@ -99,8 +126,8 @@ def _reads_pages(k_pool, cfg, mesh) -> bool:
 
 
 @torch.no_grad()
-def _decode_round_forward(params, cfg, k_pool, v_pool, page_table, pos_t,
-                          tok, *, page_size: int, mesh=None):
+def _decode_round_forward(params, cfg, pool, page_table, pos_t, tok, *,
+                          n_keys: int, mesh=None):
     """One continuous-batching decode step over every slot, to its logits.
 
     Paged route: ``decode_step`` over the pools and the round's page table;
@@ -116,8 +143,23 @@ def _decode_round_forward(params, cfg, k_pool, v_pool, page_table, pos_t,
     the view) and scatters that single row back into the page pool in
     place, idle slots' onto page 0 as above.
 
+    Latent route (MLA): ``decode_step`` over the latent pool and the
+    round's page table cut to the pages of its longest slot's ``n_keys``
+    keys (a host count); each layer writes its new latent row into its
+    page, then gathers that layer's rows through the table for its
+    attention.
+
     ``page_table``, ``pos_t`` and ``tok`` are on the device; returns
-    (logits (B, V), bytes of the K/V views gathered)."""
+    (logits (B, V), bytes of the K/V views or latent rows gathered)."""
+    if pool.latent is not None:
+        L, _, ps, width = pool.latent.shape
+        w = -(-n_keys // ps)
+        logits, _ = decode_step(
+            params, cfg, paged_latent_cache(pool.latent, page_table[:, :w],
+                                            pos_t), tok, pos_t)
+        return logits, L * page_table.shape[0] * w * ps * width \
+            * pool.latent.element_size()
+    k_pool, v_pool, page_size = pool.k, pool.v, pool.page_size
     if _reads_pages(k_pool, cfg, mesh):
         logits, _ = decode_step(
             params, cfg, paged_cache(k_pool, v_pool, page_table, pos_t), tok,
@@ -145,7 +187,8 @@ class ContinuousBatchingEngine:
 
     Parameters
     ----------
-    cfg: model config (dense and moe GQA archs).
+    cfg: model config (dense and moe archs, GQA or MLA); a moe model is
+        served dropless.
     num_slots: decode-slot pool size (the decode batch dimension).
     page_size: tokens per KV page.
     max_len: max total sequence length (prompt + generation); rounded up
@@ -159,6 +202,9 @@ class ContinuousBatchingEngine:
         keeping every sequence's sampling stream stable.
     device: where the KV pool lives and the steps run (``cuda`` unless
         the caller passes another); ``params`` must live there too.
+    record_picks: a moe model's engine keeps every forward's picks of
+        held experts on the device, for ``picks_of`` (a benchmark's
+        comparison routes its reference as the engine routed).
     mesh: optional ``DeviceMesh``: decode attention goes through
         ``distributed/flash_decode``'s sharded partial-softmax combine
         over its "model" axis in place of ``kernels/decode_attention``
@@ -172,12 +218,15 @@ class ContinuousBatchingEngine:
                  max_new_tokens: int = 8, temperature: float = 1.0,
                  eos_id: int = ByteTokenizer.eos_id, seed: int = 0,
                  uid_start: int = 0, dtype=None, device=None, mesh=None,
-                 metrics=None):
-        if cfg.arch_type not in SUPPORTED_ARCHS or cfg.attention == "mla":
+                 metrics=None, record_picks: bool = False):
+        if cfg.arch_type not in SUPPORTED_ARCHS:
+            # the reference's message (it serves GQA alone)
             raise ValueError(
                 f"continuous batching supports GQA {SUPPORTED_ARCHS} archs "
                 f"(got arch_type={cfg.arch_type!r}, "
                 f"attention={cfg.attention!r})")
+        if cfg.arch_type == "moe":
+            cfg = dataclasses.replace(cfg, moe_dropless=True)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -229,10 +278,33 @@ class ContinuousBatchingEngine:
             "rollout_tokens_total",
             "tokens appended to sequences (prefill and decode)").labels(
                 engine="cb")
-        self._c_gather = m.counter(
+        gather = m.counter(
             "rollout_kv_gather_bytes_total",
-            "bytes of per-slot K/V views decode rounds gathered").labels(
-                engine="cb")
+            "bytes of per-slot K/V views decode rounds gathered")
+        self._c_gather = (gather.labels(engine="cb", kind="latent")
+                          if cfg.attention == "mla"
+                          else gather.labels(engine="cb"))
+        by_phase = (
+            ("rollout_model_tokens_total",
+             "live tokens through the trunk (no padding, no idle slot)"),
+            ("rollout_attended_pairs_total",
+             "query-key pairs of the live tokens"),
+            ("moe_held_picks_total",
+             "picks routed to held experts, all layers"),
+            ("moe_expert_rows_total",
+             "rows the expert products computed, all layers"))
+        self._c_phase = {
+            (name, ph): m.counter(name, help).labels(engine="cb", phase=ph)
+            for name, help in by_phase for ph in ("prefill", "decode")}
+        # the expert layers' device-side counts, read at each host sync
+        self._tally = (moe_mod.PickTally(self.device)
+                       if cfg.arch_type == "moe" else None)
+        self._tally_read = [0, 0]
+        # uid -> [(first position, a forward's (MoE layers, rows, tokens a
+        # row, top_k) picks, its row, its tokens)]
+        self._picks: Optional[Dict[int, list]] = None
+        if record_picks and self._tally is not None:
+            self._picks, self._tally.log = {}, []
 
     # ------------------------------------------------------------------ #
     # request construction                                                #
@@ -384,21 +456,87 @@ class ContinuousBatchingEngine:
                     toks[i, :q.length] = q.tokens
                     lens[i] = q.length
                     uids[i] = q.uid
-                k, v, last = _prefill_forward(
-                    params, self.cfg, torch.from_numpy(toks).to(self.device),
-                    lens)
+                with self._counting(enumerate(lens[:len(group)]),
+                                    (B, pad_len)):
+                    rows, last = _prefill_forward(
+                        params, self.cfg,
+                        torch.from_numpy(toks).to(self.device), lens)
             with span("sample"):
                 nxt, lp = _sample(last, self.seed, uids, lens,
                                   self.temperature)
             with span("sync"):
                 nxt, lp = nxt.tolist(), lp.tolist()
+                real = lens[:len(group)]
+                self._count("prefill", sum(real),
+                            sum(n * (n + 1) // 2 for n in real),
+                            ((i, q.uid, 0, q.length)
+                             for i, (_, q) in enumerate(group)), pad_len)
             with span("write"):
                 for i, (_, q) in enumerate(group):
-                    self.pool.write_prefill(q.uid, k[:, i], v[:, i],
-                                            q.length)
+                    if "latent" in rows:
+                        self.pool.write_prefill_latent(
+                            q.uid, rows["latent"][:, i], q.length)
+                    else:
+                        self.pool.write_prefill(q.uid, rows["k"][:, i],
+                                                rows["v"][:, i], q.length)
                     self._append_token(q, int(nxt[i]), float(lp[i]))
                 self._c_tokens.inc(len(group))
         self._h_prefill.observe(time.monotonic() - t0)
+
+    def _counting(self, live, shape):
+        """The expert layers' tally installed for a forward over ``shape``
+        (rows, tokens a row) tokens, ``live`` yielding (row, its first n
+        tokens live): padding and idle slots are not. Nothing is installed
+        (nor ``live`` read) for a model without experts."""
+        if self._tally is None:
+            return contextlib.nullcontext()
+        n = np.zeros(shape[0], np.int64)
+        for row, k in live:
+            n[row] = k
+        mask = np.arange(shape[1])[None, :] < n[:, None]
+        self._tally.live = torch.from_numpy(mask).to(self.device)
+        return moe_mod.counting(self._tally)
+
+    def _count(self, phase: str, tokens: int, pairs: int, placed,
+               width: int) -> None:
+        """A forward's counts by phase; the tally's device counts are read
+        here, after the forward's own host sync. ``placed`` yields (row,
+        uid, first position, tokens) of the live rows of a forward of
+        ``width`` tokens a row, whose picks ``record_picks`` keeps."""
+        c = self._c_phase
+        c["rollout_model_tokens_total", phase].inc(tokens)
+        c["rollout_attended_pairs_total", phase].inc(pairs)
+        if self._tally is None:
+            return
+        now = self._tally.counts.tolist()
+        c["moe_held_picks_total", phase].inc(now[0] - self._tally_read[0])
+        c["moe_expert_rows_total", phase].inc(now[1] - self._tally_read[1])
+        self._tally_read = now
+        if self._picks is not None:
+            log = torch.stack(self._tally.log)            # (L, rows * w, k)
+            log = log.view(log.shape[0], -1, width, log.shape[-1])
+            self._tally.log = []
+            for row, uid, pos, n in placed:
+                self._picks.setdefault(uid, []).append((pos, log, row, n))
+
+    def picks_of(self, uid: int) -> np.ndarray:
+        """The held experts each of ``uid``'s positions picked at each MoE
+        layer, as its forwards (prefill, then decode rounds) picked them:
+        uint8 (positions, MoE layers, top_k), an expert's index among those
+        held, or the count held for one held elsewhere. Needs
+        ``record_picks``."""
+        parts = self._picks.get(uid, [])
+        if not parts:
+            return np.zeros((0, 0, 0), np.uint8)
+        flat = torch.cat([log[:, row, :n].transpose(0, 1)
+                          for _, log, row, n in parts]).cpu().numpy()
+        out = np.zeros((max(p + n for p, _, _, n in parts),)
+                       + flat.shape[1:], np.uint8)
+        i = 0
+        for pos, _, _, n in parts:           # a later forward overwrites
+            out[pos:pos + n] = flat[i:i + n]
+            i += n
+        return out
 
     # -- decode dispatch ---------------------------------------------------
 
@@ -424,15 +562,20 @@ class ContinuousBatchingEngine:
                 with span("retire"):
                     self._retire(finished, paused, emit)
                 return
-            with span("forward"):
+            with span("forward"), self._counting(
+                    ((s, 1) for s, _ in stepping), (self.num_slots, 1)):
                 logits, gathered = _decode_round_forward(
-                    params, self.cfg, self.pool.k, self.pool.v, page_table,
-                    pos_t, tok, page_size=self.page_size, mesh=self.mesh)
+                    params, self.cfg, self.pool, page_table, pos_t, tok,
+                    n_keys=max(pos) + 1, mesh=self.mesh)
             with span("sample"):
                 nxt, lp = _sample(logits, self.seed, uids,
                                   [p + 1 for p in pos], self.temperature)
             with span("sync"):
                 nxt, lp = nxt.tolist(), lp.tolist()
+                # idle slots sit at position 0
+                self._count("decode", len(stepping),
+                            sum(pos) + len(stepping),
+                            ((s, q.uid, pos[s], 1) for s, q in stepping), 1)
             with span("retire"):
                 for s, q in stepping:
                     self.pool.kv_len[q.uid] = q.length

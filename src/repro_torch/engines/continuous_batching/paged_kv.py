@@ -1,7 +1,10 @@
 """Paged KV cache — block-allocated KV pages for continuous batching.
 
 The physical cache is one page pool per K/V tensor, shaped
-``(L, num_pages, page_size, KVH, hd)`` and kept on the engine's device.
+``(L, num_pages, page_size, KVH, hd)`` and kept on the engine's device;
+an MLA model's is one latent pool, ``(L, num_pages, page_size, r + dr)``:
+a token's row is its ``c_kv`` then its ``k_rope``, shared by every head
+(``k`` and ``v`` are then None, and ``latent`` None for a GQA model).
 A sequence owns an ordered list of pages (allocated on demand as it
 grows, freed as one unit when it finishes), so a prefix is prefilled
 exactly once and then decoded incrementally — no per-chunk re-prefill —
@@ -53,10 +56,17 @@ class PagedKVPool:
         self.pages_per_seq = int(pages_per_seq)
         self.num_pages = int(num_pages)
         dtype = torch.bfloat16 if dtype is None else dtype
-        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-                 cfg.head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.k = self.v = self.latent = None
+        if cfg.attention == "mla":
+            self.latent = torch.zeros(
+                (cfg.num_layers, num_pages, page_size,
+                 cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                dtype=dtype, device=device)
+        else:
+            shape = (cfg.num_layers, num_pages, page_size,
+                     cfg.num_kv_heads, cfg.head_dim)
+            self.k = torch.zeros(shape, dtype=dtype, device=device)
+            self.v = torch.zeros(shape, dtype=dtype, device=device)
         self._lock = threading.Lock()
         # page 0 reserved: idle decode slots scatter their dummy KV row
         # there, so it must never belong to a live sequence
@@ -132,14 +142,22 @@ class PagedKVPool:
         """Store a prefilled prefix in place: ``k_seq``/``v_seq`` are
         ``(L, S, KVH, hd)`` with the first ``n_tokens`` rows valid.
         Allocates pages on demand; one scatter for the whole prefix."""
+        self._write(uid, ((self.k, k_seq), (self.v, v_seq)), n_tokens)
+
+    def write_prefill_latent(self, uid: int, lat_seq, n_tokens: int) -> None:
+        """``write_prefill`` for an MLA pool: ``lat_seq`` is ``(L, S,
+        r + dr)``, the first ``n_tokens`` rows valid."""
+        self._write(uid, ((self.latent, lat_seq),), n_tokens)
+
+    def _write(self, uid, pairs, n_tokens: int) -> None:
         self.ensure(uid, n_tokens)
         with self._lock:
             pages = list(self._owned[uid])
+        dev = pairs[0][0].device
         t = torch.arange(n_tokens)
         phys = torch.tensor(pages, dtype=torch.long)[t // self.page_size]
-        phys, off = phys.to(self.k.device), (t % self.page_size).to(
-            self.k.device)
-        self.k[:, phys, off] = k_seq[:, :n_tokens].to(self.k.dtype)
-        self.v[:, phys, off] = v_seq[:, :n_tokens].to(self.v.dtype)
+        phys, off = phys.to(dev), (t % self.page_size).to(dev)
+        for pool, rows in pairs:
+            pool[:, phys, off] = rows[:, :n_tokens].to(pool.dtype)
         with self._lock:
             self.kv_len[uid] = max(self.kv_len.get(uid, 0), n_tokens)

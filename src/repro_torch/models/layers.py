@@ -123,11 +123,14 @@ def rotary_freqs(head_dim, theta):
                             / head_dim))
 
 
-def apply_rotary(x, positions, theta=10_000.0):
+def apply_rotary(x, positions, theta=10_000.0, freqs=None):
     """x: (..., seq, heads, head_dim); positions: (..., seq). Split-half
-    rotation in fp32, frequencies computed in numpy fp32."""
+    rotation in fp32, frequencies computed in numpy fp32: the plain table
+    of ``theta``, or ``freqs`` (head_dim/2,) where given (YaRN)."""
     hd = x.shape[-1]
-    freqs = torch.from_numpy(rotary_freqs(hd, theta)).to(x.device)
+    if freqs is None:
+        freqs = rotary_freqs(hd, theta)
+    freqs = torch.from_numpy(freqs).to(x.device)
     angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]

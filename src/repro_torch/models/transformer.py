@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.obs.tracing import span
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -61,12 +62,16 @@ def _layer(tree, i):
     return tree[i]
 
 
+_POOLS = ("k", "v", "latent")
+
+
 def _cache_layer(cache, i):
     """Layer ``i`` of a decode cache; a paged cache's table, rows and mask
-    are the round's, not a layer's, so every layer gets them whole."""
+    are the round's, not a layer's, so every layer gets them whole (and
+    its pools, K/V or MLA's latents, one layer at a time)."""
     if "page_table" not in cache:
         return _layer(cache, i)
-    return {**cache, "k": cache["k"][i], "v": cache["v"][i]}
+    return {**cache, **{k: cache[k][i] for k in _POOLS if k in cache}}
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +193,11 @@ def _hybrid_layers(params, cfg):
 
 
 def _ffn(p, h, cfg, ffn_kind):
-    """The block's feed-forward: (y, the moe load-balance loss or 0.0)."""
+    """The block's feed-forward: (y, the moe load-balance loss or 0.0);
+    the experts under a ``moe.ffn`` span."""
     if ffn_kind == "moe":
-        return moe_mod.moe_ffn(p, h, cfg)
+        with span("moe.ffn"):
+            return moe_mod.moe_ffn(p, h, cfg)
     return mlp(p, h, cfg.activation, h.dtype), 0.0
 
 
@@ -200,8 +207,9 @@ def _attn_block_full(p, x, cfg, *, window, positions, use_kernels,
     or MLA's {"c_kv", "k_rope"}). MLA runs no kernel on any route."""
     h = norm(p["ln1"], x)
     if cfg.attention == "mla":
-        y, kv = mla_mod.mla_full_kv(p["attn"], h, cfg, positions,
-                                    window=window)
+        with span("mla.attend"):
+            y, kv = mla_mod.mla_full_kv(p["attn"], h, cfg, positions,
+                                        window=window)
     else:
         y, k, v = attn.attend_full_kv(p["attn"], h, cfg, positions,
                                       window=window, use_kernels=use_kernels)
@@ -344,7 +352,10 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False, mesh=None):
     """token: (B,) int; pos: (B,) absolute positions.
     Returns (logits (B, V), cache); the cache is updated in place. A GQA
     trunk's cache may be paged: ``attention.paged_cache`` over the page
-    pools of every layer (L, num_pages, page_size, KVH, hd).
+    pools of every layer (L, num_pages, page_size, KVH, hd); an MLA
+    trunk's likewise ``mla.paged_latent_cache`` over the latent pool (L,
+    num_pages, page_size, r + dr). An MLA layer decodes under an
+    ``mla.attend`` span and a moe layer's experts under ``moe.ffn``.
 
     ``mesh`` routes the GQA attention of the dense, moe and vlm trunks
     through ``distributed/flash_decode``'s sharded combine (no
@@ -378,8 +389,10 @@ def decode_lm(params, cfg, cache, token, pos, *, ring=False, mesh=None):
         for i, (ffn_kind, p) in enumerate(layers):
             h = norm(p["ln1"], x)
             if cfg.attention == "mla":
-                y, _ = mla_mod.mla_decode(p["attn"], h, _layer(cache, i),
-                                          pos, cfg, ring=ring)
+                with span("mla.attend"):
+                    y, _ = mla_mod.mla_decode(p["attn"], h,
+                                              _cache_layer(cache, i), pos,
+                                              cfg, ring=ring)
             else:
                 y, _ = attn.attend_decode(p["attn"], h,
                                           _cache_layer(cache, i), pos, cfg,

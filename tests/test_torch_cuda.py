@@ -1240,3 +1240,127 @@ def test_sharded_decode_on_a_one_rank_nccl_group(cuda_device, dtype):
     torch.testing.assert_close(out.float(),
                                decode_attention_ref(q, k, v, valid).float(),
                                atol=tol, rtol=tol)
+
+
+# -- DeepSeek-V2 on the continuous engine -------------------------------------
+
+def _ds_v2(**changes):
+    """The benchmark's DeepSeek-V2 share (``perfbench/configs/
+    deepseek_v2_ep8.json``'s ``port``) with ``changes``."""
+    import json
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "perfbench" / "configs" \
+        / "deepseek_v2_ep8.json"
+    return dict(json.loads(path.read_text())["port"], **changes)
+
+
+def test_paged_latent_decode_on_card_matches_the_dense_cache(cuda_device):
+    """One DeepSeek-V2 attention layer at the rollout cell's shape (512
+    slots filled to 1-2304 keys, 128 heads, latent 512 + 64, bf16, pages
+    of 8 shuffled over the pool): ``mla_decode`` through the page table
+    against the same rows in a dense latent cache. bf16: the gathered
+    rows are the dense ones, but the products may take other kernels on
+    strided operands, so one bf16 rounding of the output apart."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import mla
+    cfg = ModelConfig(**_ds_v2(num_layers=1))
+    gen = torch.Generator(device=cuda_device).manual_seed(2304)
+    p = tree_map(lambda t: t[0], mla.init_mla(gen, cfg, layers=(1,)))
+    p["kv_norm"] = {"scale": 1 + 0.02 * torch.randn(
+        cfg.kv_lora_rank, generator=gen, device=cuda_device)}
+    p["q_norm"] = {"scale": 1 + 0.02 * torch.randn(
+        cfg.q_lora_rank, generator=gen, device=cuda_device)}
+    B, S, ps = 512, 2304, 8
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    bf = torch.bfloat16
+    dense = {"c_kv": _randn(gen, (B, S, r), bf, cuda_device),
+             "k_rope": _randn(gen, (B, S, dr), bf, cuda_device)}
+    pages = B * S // ps
+    table = (torch.randperm(pages, generator=gen, device=cuda_device)
+             .view(B, S // ps) + 1)
+    pool = torch.zeros((1 + pages, ps, r + dr), dtype=bf, device=cuda_device)
+    pool[table.reshape(-1)] = torch.cat(
+        [dense["c_kv"], dense["k_rope"]], -1).view(-1, ps, r + dr)
+    pos = torch.randint(0, S, (B,), generator=gen, device=cuda_device)
+    pos[:2] = torch.tensor([0, S - 1])
+    x = _randn(gen, (B, 1, cfg.d_model), bf, cuda_device)
+    with torch.no_grad():
+        want, _ = mla.mla_decode(p, x, dense, pos, cfg)
+        got, _ = mla.mla_decode(p, x, mla.paged_latent_cache(pool, table,
+                                                             pos), pos, cfg)
+    _assert_close_rel(got.float(), want.float(), 2e-2)
+    back = pool[table].reshape(B, S, r + dr)
+    assert torch.equal(back[..., :r], dense["c_kv"])
+
+
+def test_grouped_expert_ffn_on_card_matches_its_loop(cuda_device):
+    """The held experts' grouped products (``torch._grouped_mm`` over
+    device counts) at the cell's decode shape (512 tokens x 6 picks, 20
+    held experts of 5120 x 1536, bf16) against the per-expert loop, the
+    rows past the held picks left out: within one bf16 rounding (the
+    products' order in fp32 accumulators differs)."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    E, d, dff = 20, 5120, 1536
+    ex = {n: 0.02 * torch.randn(s, generator=gen, device=cuda_device)
+          for n, s in (("up", (E, d, dff)), ("gate", (E, d, dff)),
+                       ("down", (E, dff, d)))}
+    xs = _randn(gen, (3072, d), torch.bfloat16, cuda_device)
+    for held in (0, 1, 384, 3072):
+        ids = torch.randint(0, E, (held,), generator=gen, device=cuda_device)
+        counts = torch.zeros(E, dtype=torch.int64, device=cuda_device) \
+            .scatter_add(0, ids, torch.ones_like(ids))
+        got = moe.grouped_expert_ffn(ex, xs, counts, "silu", torch.bfloat16)
+        w = tree_map(lambda t: t.bfloat16(), ex)
+        lo = 0
+        for e, hi in enumerate(torch.cumsum(counts, 0).tolist()):
+            a = xs[lo:hi]
+            want = (a @ w["up"][e]) * torch.nn.functional.silu(
+                a @ w["gate"][e]) @ w["down"][e]
+            if hi > lo:
+                _assert_close_rel(got[lo:hi].float(), want.float(), 2e-2)
+            lo = hi
+
+
+def test_deepseek_v2_engine_on_card_matches_the_reference(cuda_device):
+    """DeepSeek-V2 at its published widths, 1 dense + 4 MoE layers (20 of
+    160 experts held), through the continuous engine on the card in fp32
+    (4 slots, pages of 8, 6 ragged requests; the experts' loop route and
+    the fp32 latent pool), each served logprob against the benchmark's
+    plain reference in fp32: float32 round-off through 5 layers of
+    128-head latent attention, 1e-3."""
+    from perfbench.core.weights import make
+    from perfbench.reference import moe as ref
+    from perfbench.reference.precision import Precision
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.engines.continuous_batching import \
+        ContinuousBatchingEngine
+
+    class F32(Precision):
+        def __init__(self):
+            self.name, self.act = "f32", torch.float32
+
+        def mm(self, x, w):
+            return torch.matmul(x.float(), w.float())
+
+    c = _ds_v2(num_layers=5, compute_dtype="float32")
+    params = make(ref.layout(c), 2**33 + 17, cuda_device)
+    eng = ContinuousBatchingEngine(
+        ModelConfig(**c), num_slots=4, page_size=8, max_len=96,
+        max_new_tokens=8, eos_id=-1, seed=11, dtype=torch.float32,
+        device=cuda_device)
+    rng = np.random.default_rng(17)
+    fin, _ = eng.generate(params, [
+        eng.make_sequence(rng.integers(0, c["vocab_size"], n).tolist(),
+                          max_new=m)
+        for n, m in ((9, 8), (40, 3), (17, 6), (64, 8), (5, 5), (30, 7))])
+    assert len(fin) == 6
+    for q in fin:
+        toks = torch.tensor(q.tokens, device=cuda_device)[None]
+        with torch.no_grad():
+            lp = torch.log_softmax(ref.forward(params, toks, c, F32())[0],
+                                   -1)
+        want = lp[torch.arange(q.prompt_len - 1, len(q.tokens) - 1),
+                  toks[0, q.prompt_len:]].cpu()
+        got = torch.tensor(q.logprobs[q.prompt_len:])
+        assert float((got - want).abs().max()) <= 1e-3

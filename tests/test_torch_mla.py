@@ -414,17 +414,36 @@ def test_fixed_engine_logprobs_match_reference_decode(name):
 
 
 def test_continuous_engine_refuses_minicpm3_as_the_reference_does():
+    """The reference's continuous engine refuses MLA; the port's serves it
+    from a paged latent pool (one ``kv_lora_rank + qk_rope_head_dim`` row
+    a token and layer): each served logprob against the reference's
+    forward over the request's tokens, fp32."""
     from repro.engines.continuous_batching import \
         ContinuousBatchingEngine as RefEngine
     from repro_torch.engines.continuous_batching import \
         ContinuousBatchingEngine
-    ref_cfg, _, cfg, _ = _setup("minicpm3_qlora")
+    ref_cfg, ref_params, cfg, params = _setup("minicpm3_qlora")
     with pytest.raises(ValueError) as want:
         RefEngine(ref_cfg)
-    with pytest.raises(ValueError) as got:
-        ContinuousBatchingEngine(cfg, device="cpu")
-    assert "attention='mla'" in str(got.value)
-    assert str(got.value) == str(want.value)
+    assert "attention='mla'" in str(want.value)
+    eng = ContinuousBatchingEngine(cfg, num_slots=2, page_size=4,
+                                   max_len=24, max_new_tokens=4, eos_id=-1,
+                                   seed=3, dtype=torch.float32, device="cpu")
+    assert eng.pool.latent.shape[-1] == cfg.kv_lora_rank \
+        + cfg.qk_rope_head_dim and eng.pool.k is None
+    rng = np.random.default_rng(9)
+    fin, _ = eng.generate(params, [eng.make_sequence(
+        rng.integers(3, 259, n).tolist()) for n in (3, 6, 5)])
+    assert len(fin) == 3
+    for q in fin:
+        toks = np.asarray(q.tokens, np.int32)[None]
+        logits, _ = jax_forward(ref_params, ref_cfg,
+                                {"tokens": jnp.asarray(toks)})
+        logp = jax.nn.log_softmax(np.asarray(logits, np.float32)[0], -1)
+        want_lp = [float(logp[t - 1, toks[0, t]])
+                   for t in range(q.prompt_len, len(q.tokens))]
+        np.testing.assert_allclose(q.logprobs[q.prompt_len:], want_lp,
+                                   atol=FP32_TOL, rtol=FP32_TOL)
 
 
 @pytest.mark.parametrize("arch", ["minicpm3_4b", "deepseek_v2_236b"])

@@ -447,6 +447,11 @@ def test_continuous_engine_serves_moe_teacher_forced():
 
 
 def test_continuous_engine_refuses_mla_as_the_reference_does():
+    """The reference's continuous engine refuses the MLA moe config (the
+    reduced DeepSeek-V2); the port's serves it, dropless, from a paged
+    latent pool: each served logprob against the reference's forward,
+    fp32, every token routed to every expert so that the reference's
+    capacity drops nothing either."""
     from repro.engines.continuous_batching import \
         ContinuousBatchingEngine as RefEngine
     from repro_torch.engines.continuous_batching import \
@@ -454,10 +459,31 @@ def test_continuous_engine_refuses_mla_as_the_reference_does():
     ref_cfg = ref_get_config("deepseek_v2_236b").reduced()
     with pytest.raises(ValueError) as want:
         RefEngine(ref_cfg)
-    with pytest.raises(ValueError) as got:
-        ContinuousBatchingEngine(_port_cfg(ref_cfg), device="cpu")
-    assert "attention='mla'" in str(got.value)
-    assert str(got.value) == str(want.value)
+    assert "attention='mla'" in str(want.value)
+    ref_cfg = dataclasses.replace(ref_cfg, vocab_size=ByteTokenizer.vocab_size,
+                                  compute_dtype="float32",
+                                  top_k=ref_cfg.num_experts)
+    ref_params = jax_init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params),
+                                   device="cpu")
+    eng = ContinuousBatchingEngine(_port_cfg(ref_cfg), num_slots=2,
+                                   page_size=4, max_len=24,
+                                   max_new_tokens=4, eos_id=-1, seed=3,
+                                   dtype=torch.float32, device="cpu")
+    assert eng.cfg.moe_dropless and eng.pool.latent is not None
+    rng = np.random.default_rng(9)
+    fin, _ = eng.generate(params, [eng.make_sequence(
+        rng.integers(3, 259, n).tolist()) for n in (3, 6, 5)])
+    assert len(fin) == 3
+    for q in fin:
+        toks = np.asarray(q.tokens, np.int32)[None]
+        logits, _ = jax_forward(ref_params, ref_cfg,
+                                {"tokens": jnp.asarray(toks)})
+        logp = jax.nn.log_softmax(np.asarray(logits, np.float32)[0], -1)
+        want_lp = [float(logp[t - 1, toks[0, t]])
+                   for t in range(q.prompt_len, len(q.tokens))]
+        np.testing.assert_allclose(q.logprobs[q.prompt_len:], want_lp,
+                                   atol=FP32_TOL, rtol=FP32_TOL)
 
 
 def test_trainer_fit_baseline_on_moe():
