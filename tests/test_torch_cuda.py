@@ -7,6 +7,7 @@ runs alone: ``PYTHONPATH=src python -m pytest --noconftest
 tests/test_torch_cuda.py``."""
 import dataclasses
 import re
+import time
 
 import numpy as np
 import pytest
@@ -35,7 +36,7 @@ from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_ref,
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 # fp32: summation order differs on the card; bf16: one rounding of the output
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1364,3 +1365,108 @@ def test_deepseek_v2_engine_on_card_matches_the_reference(cuda_device):
                   toks[0, q.prompt_len:]].cpu()
         got = torch.tensor(q.logprobs[q.prompt_len:])
         assert float((got - want).abs().max()) <= 1e-3
+
+
+# ---- weight publish and swaps through pinned staging arenas -------------
+
+def _weights(device, sizes, seed):
+    """A parameter-like tree on the card: fp32 matrices, a bf16 leaf, a
+    scalar."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"blocks": [{"w": torch.randn(n, generator=gen, device=device)
+                        .view(n // 512, 512)} for n in sizes],
+            "b": torch.randn(1001, generator=gen,
+                             device=device).to(torch.bfloat16),
+            "s": torch.randn((), generator=gen, device=device)}
+
+
+def test_weights_through_staging_arenas_are_bit_identical(cuda_device):
+    """Three versions, each published as new tensors (the optimizer's
+    way) and swapped by two receivers: every receiver's tree equals the
+    trainer's bit for bit on its own storage, every tree copy goes
+    through an arena, and the sender holds at most two arenas."""
+    from repro_torch.core.obs import scoped
+    from repro_torch.core.workflow.weight_sync import (
+        _ALIGN, BroadcastWeightChannel, WeightReceiver, WeightSender)
+    tree = _weights(cuda_device, (512 * 1024, 512 * 3001, 512), 7)
+    leaves = tree_leaves(tree)
+    two = 2 * sum(t.numel() * t.element_size() + _ALIGN for t in leaves)
+    with scoped() as reg:
+        ch = BroadcastWeightChannel(metrics=reg)
+        sender = WeightSender(ch, mode="async", metrics=reg)
+        recvs = [WeightReceiver(ch, tree, metrics=reg, replica_id=i)
+                 for i in range(2)]
+        gauge = reg.gauge("weight_staging_bytes")
+        for v in (1, 2, 3):
+            tree = tree_map(lambda t: (t * 1.5 + v).to(t.dtype), tree)
+            sender.publish(tree, v)
+            for r in recvs:
+                assert r.wait_and_swap(v, timeout=60.0)
+            assert all(t.is_pinned()
+                       for t in tree_leaves(ch.peek().host_params))
+            for r in recvs:
+                for got, want in zip(tree_leaves(r.params),
+                                     tree_leaves(tree)):
+                    assert got.device == want.device
+                    assert got.dtype == want.dtype and torch.equal(got, want)
+                    assert got.data_ptr() != want.data_ptr()
+            assert 0 < gauge.value() <= two
+        sender.flush()
+        assert not {t.data_ptr() for t in tree_leaves(recvs[0].params)} \
+            & {t.data_ptr() for t in tree_leaves(recvs[1].params)}
+        pinned = reg.counter("weight_copy_pinned_total")
+        assert pinned.value(role="publish") == 3
+        assert pinned.value(role="swap") == 6
+        copies = reg.histogram("weight_copy_seconds")
+        assert copies.summary(role="publish")["count"] == 3
+        assert copies.summary(role="swap")["count"] == 6
+        assert ch.acked_versions() == {0: 3, 1: 3}
+        assert len(sender.pool.arenas) == 2 and gauge.value() <= two
+        assert all(a.leases == 0 for a in sender.pool.arenas)
+
+
+def test_a_publish_leaves_the_default_stream_running(cuda_device):
+    """A 2 GB publish issued just before a run of matrix products on the
+    default stream: the products take about as long as alone, where the
+    same tree's pageable copies on that stream would add their time."""
+    from repro_torch.core.obs import scoped
+    from repro_torch.core.workflow.weight_sync import (WeightChannel,
+                                                       WeightSender)
+    tree = _weights(cuda_device, (64 * 2**20,) * 8, 8)
+    a = torch.randn(8192, 8192, device=cuda_device)
+    c = torch.empty_like(a)
+
+    def products():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(30):
+            torch.mm(a, a, out=c)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    t0 = time.perf_counter()
+    for t in tree_leaves(tree):
+        t.to("cpu")
+    pageable = time.perf_counter() - t0
+    with scoped() as reg:
+        sender = WeightSender(WeightChannel(metrics=reg), metrics=reg)
+        for v in (1, 2):                 # both arenas made and warm
+            sender.publish(tree, v)
+            sender.flush()
+        products()
+        alone = min(products() for _ in range(3))
+        copies = reg.histogram("weight_copy_seconds")
+        before = copies.summary(role="publish")["sum"]
+        sender.publish(tree, 3)
+        beside = products()
+        sender.flush()
+        copy_s = copies.summary(role="publish")["sum"] - before
+        snap = sender.channel.peek()
+    print(f"products alone {alone:.4f} s, beside a publish {beside:.4f} s; "
+          f"the publish's copy {copy_s:.4f} s, pageable {pageable:.4f} s")
+    assert snap.version == 3 and snap.arena is not None
+    for got, want in zip(tree_leaves(snap.host_params), tree_leaves(tree)):
+        assert torch.equal(got, want.cpu())
+    assert copy_s < pageable
+    assert beside - alone < 0.25 * pageable
